@@ -5,26 +5,31 @@
 Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
    card's name and power limit;
-2. build: compiles the group-probe kernel from `tantivy_tpu_torch/csrc`
-   with nvcc into `build/kernels/`;
+2. build: compiles the group-probe and phrase-probe kernels from
+   `tantivy_tpu_torch/csrc` with nvcc into `build/kernels/`, both at once;
 3. index: a Zipf corpus (one `body` TEXT field, windows of 20-100 tokens
    over a 30,000-word token stream built from the seed), committed in 4
    segments;
 4. main path: `BatchExecutor(searcher, device="cuda").search_batch` on
-   256-query term, AND and OR batches and on a batch of 3-4 clause
-   queries, k = 10, with every kernel launch counter reset just before and
-   read just after; prints per-suite QPS, p50 batch latency and how many
-   (query, segment) plans the planner sent to the host engine;
+   256-query term, AND and OR batches, on a batch of 3-4 clause queries,
+   on bigram phrases and two-term phrase-prefixes sampled from the token
+   stream (one warm and TIMED_BATCHES timed batches each), then on one
+   untimed batch of 3- and 4-term phrases from the stream, k = 10, with
+   every kernel launch counter reset just before and read just after;
+   prints per-suite QPS, p50 batch latency and how many (query, segment)
+   plans the planner sent to the host engine, by reason;
 5. exactness: sampled queries of every suite must give the host engine's
    hits (DocAddresses, order and f32 score bits);
-6. kernel vs twin: real launch chunks captured from the main path (phase 1
-   and phase 2 with thresholds, clause buckets 2 and 4) and a synthetic
-   chunk at the largest tier (65536 groups) run through the kernel and its
-   plain PyTorch twin on the card; scores must be bitwise equal and docs
-   equal; prints both times;
-7. with `--profile PATH` only: one more fresh batch per suite with the
-   engine's host spans and `torch.profiler` on; the per-layer breakdown
-   (host span ms, device ms per kernel, idle share) goes to PATH as JSON.
+6. kernel vs twin: real launch chunks captured from the main path (group
+   probe: phase 1 and phase 2 with thresholds, clause buckets 2 and 4;
+   phrase probe: phase 1 and phase 2, partner buckets 1 and 3, both slab
+   rungs) and one synthetic chunk per kernel at its largest tier run
+   through the kernel and its plain PyTorch twin on the card; scores must
+   be bitwise equal and docs equal; prints both times;
+7. with `--profile PATH` only: one more fresh batch per timed suite with
+   the engine's host spans and `torch.profiler` on; the per-layer
+   breakdown (host span ms, device ms per kernel, idle share) goes to PATH
+   as JSON.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -47,6 +52,9 @@ VOCAB = 30_000
 STREAM_TOKENS = 400_000
 SEGMENTS = 4
 SYNTH_W = 65536
+#: the phrase kernel's synthetic chunk: the widest W tier of the 24-row rung
+SYNTH_W_PHRASE = 32768
+KERNELS = ("group_probe", "phrase_probe")
 
 
 def gpu_line() -> str:
@@ -153,6 +161,11 @@ def query_logs(stream, seed: int, n: int) -> dict:
     def t(w):
         return tt.TermQuery(tt.Term.from_field_text("body", str(w)))
 
+    def ngrams(width):
+        """`width` consecutive stream tokens (phrases that occur)."""
+        at = rng.integers(0, len(stream) - width, n)
+        return [[str(w) for w in stream[i:i + width]] for i in at]
+
     multi = []
     for i, ws in enumerate(terms(4)):
         width = 3 + i % 2
@@ -165,24 +178,39 @@ def query_logs(stream, seed: int, n: int) -> dict:
                 for a, b in terms(2)],
         "or": [tt.BooleanQuery.union([t(a), t(b)]) for a, b in terms(2)],
         "multi": multi,
+        "phrase": [tt.PhraseQuery("body", p) for p in ngrams(2)],
+        "prefix": [tt.PhrasePrefixQuery("body", [a, b[:3]])
+                   for a, b in ngrams(2)],
     }
+
+
+def long_phrases(stream, seed: int):
+    """One batch of 3- and 4-term phrases from the stream, so the phrase
+    kernel's 3-partner bucket runs too."""
+    import tantivy_tpu_torch as tt
+
+    rng = np.random.default_rng(seed + 4)
+    at = rng.integers(0, len(stream) - 4, BATCH)
+    return [tt.PhraseQuery("body", [str(w) for w in stream[i:i + 3 + j % 2]])
+            for j, i in enumerate(at)]
 
 
 def bits(hits):
     return [(int(np.float32(s).view(np.int32)), a) for s, a in hits]
 
 
-def run_main_path(executor, logs, n_seg: int) -> tuple[dict, dict]:
-    """One warm batch per suite, then TIMED_BATCHES fresh batches; returns
-    per-suite timings, the (query, segment) plans of the timed batches that
-    the planner sent to the host engine, and the (query, hits) pairs of the
-    timed batches."""
+def run_main_path(executor, logs, long_batch, n_seg: int):
+    """One warm batch per suite, then TIMED_BATCHES fresh batches, then the
+    untimed batch of longer phrases; returns per-suite timings, with the
+    (query, segment) plans of the timed batches that the planner sent to
+    the host engine by reason, and the (query, hits) pairs of the timed
+    batches and of the longer phrases."""
     import torch
 
     timing, answered = {}, {}
     for suite, qlog in logs.items():
         executor.search_batch(qlog[:BATCH], K)
-        before = sum(executor.fallbacks.values())
+        before = dict(executor.fallbacks)
         spans, pairs = [], []
         for b in range(1, 1 + TIMED_BATCHES):
             batch = qlog[b * BATCH:(b + 1) * BATCH]
@@ -192,13 +220,22 @@ def run_main_path(executor, logs, n_seg: int) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             spans.append(time.perf_counter() - t0)
             pairs.extend(zip(batch, res))
+        by_reason = {
+            why: n - before.get(why, 0)
+            for why, n in executor.fallbacks.items()
+            if n != before.get(why, 0)
+        }
         timing[suite] = {
             "qps": len(pairs) / sum(spans),
             "p50_ms": float(np.median(spans)) * 1e3,
-            "host_plans": sum(executor.fallbacks.values()) - before,
+            "host_plans": sum(by_reason.values()),
+            "host_by_reason": by_reason,
             "plans": len(pairs) * n_seg,
         }
         answered[suite] = pairs
+    answered["phrase34"] = list(
+        zip(long_batch, executor.search_batch(long_batch, K))
+    )
     return timing, answered
 
 
@@ -210,6 +247,7 @@ def check_exact(searcher, answered, seed: int) -> None:
         pick = rng.choice(len(pairs), min(EXACT_SAMPLE, len(pairs)),
                           replace=False)
         n_hits = 0
+        t0 = time.perf_counter()
         for i in pick:
             q, dev = pairs[i]
             host = searcher.search(q, tt.TopDocs(K))
@@ -220,7 +258,8 @@ def check_exact(searcher, answered, seed: int) -> None:
                 )
             n_hits += len(host)
         print(f"exact {suite}: {len(pick)} queries, {n_hits} hits equal "
-              f"to the host engine")
+              f"to the host engine ({time.perf_counter() - t0:.1f} s on the "
+              f"host engine)")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -238,80 +277,147 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def pick_launches(log) -> list:
-    """Real chunks to hold the kernel against its twin: for clause buckets
-    2 and 4, one phase-1 round (no thresholds) and one phase-2 round
-    (finite row_th)."""
+def _compare(name, kernel, twin):
+    """Run `kernel` and `twin` (no-argument calls returning (scores, docs))
+    once each; scores must be bitwise equal and docs equal. Returns the
+    largest score difference and the number of reported lanes."""
     import torch
 
+    sc, dc = kernel()
+    rsc, rdc = twin()
+    torch.cuda.synchronize()
+    if not torch.equal(sc.view(torch.int32), rsc.view(torch.int32)):
+        bad = int((sc.view(torch.int32) != rsc.view(torch.int32)).sum())
+        raise AssertionError(f"{name}: {bad} kernel scores differ from the "
+                             "twin")
+    if not torch.equal(dc, rdc):
+        raise AssertionError(f"{name}: kernel docs differ from the twin")
+    fin = torch.isfinite(rsc)
+    err = float((sc[fin] - rsc[fin]).abs().max()) if fin.any() else 0.0
+    return err, int(fin.sum())
+
+
+def _phase2(th) -> bool:
+    import torch
+
+    return bool(torch.isfinite(th).any())
+
+
+def pick_launches(log, kind: str, key, needed) -> list:
+    """Real launch rounds to hold a kernel against its twin: the first
+    round of each `key(rec)` value; every value in `needed` must occur."""
     chosen = {}
     for rec in log:
-        phase2 = bool(torch.isfinite(rec["tables"][5]).any())
-        key = (rec["n_clauses"], phase2)
-        chosen.setdefault(key, rec)
-    for need in ((2, False), (2, True), (4, False), (4, True)):
+        if rec["kind"] == kind:
+            chosen.setdefault(key(rec), rec)
+    for need in needed:
         if need not in chosen:
             raise AssertionError(
-                f"main path made no launch with T={need[0]} "
-                f"phase2={need[1]}; kernel check would be incomplete"
+                f"main path made no {kind} launch with {need}; the kernel "
+                "check would be incomplete"
             )
-    return [(f"T{t}_{'p2' if p2 else 'p1'}", rec)
-            for (t, p2), rec in sorted(chosen.items())]
+    return sorted(chosen.items())
 
 
-def synthetic_chunk(log):
-    """The main path's largest real chunk, its live groups repeated to
-    fill SYNTH_W groups: real work at the largest tier's width."""
-    import torch
-
+def synthetic_rows(log, kind: str, width: int, slab_rows=None):
+    """The main path's largest real chunk of `kind` (of one slab rung, for
+    the phrase kernel), its live groups repeated to fill `width` groups:
+    real work at the largest tier's width."""
+    mask_col = 3 if kind == "bool" else 2
     rec, rows = max(
-        ((r, c[0]) for r in log for c in r["chunks"]),
-        key=lambda rc: int((rc[1][:, 3] != 0).sum()),
+        ((r, c[0] if kind == "bool" else c[1])
+         for r in log if r["kind"] == kind for c in r["chunks"]
+         if slab_rows is None or c[0] == slab_rows),
+        key=lambda rc: int((rc[1][:, mask_col] != 0).sum()),
     )
-    live = rows[rows[:, 3] != 0]
-    reps = -(-SYNTH_W // live.shape[0])
-    return rec, live.repeat(reps, 1)[:SYNTH_W].contiguous()
+    live = rows[rows[:, mask_col] != 0]
+    reps = -(-width // live.shape[0])
+    return rec, live.repeat(reps, 1)[:width].contiguous()
 
 
-def kernel_vs_twin(log) -> dict:
-    import torch
-
+def group_probe_vs_twin(log) -> dict:
     from tantivy_tpu_torch.ops.group_probe import group_probe, group_probe_ref
 
-    def compare(name, rec, rows):
-        kk = min(rec["k"], 128)
+    def calls(rec, rows):
         args = (rows, *rec["tables"], rec["cstore"])
-        kw = dict(num_prows=rec["num_prows"], kk=kk)
-        sc, dc = group_probe(*args, **kw)
-        rsc, rdc = group_probe_ref(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(sc.view(torch.int32), rsc.view(torch.int32)):
-            bad = int((sc.view(torch.int32) != rsc.view(torch.int32)).sum())
-            raise AssertionError(f"{name}: {bad} kernel scores differ from "
-                                 "the twin")
-        if not torch.equal(dc, rdc):
-            raise AssertionError(f"{name}: kernel docs differ from the twin")
-        fin = torch.isfinite(rsc)
-        err = float((sc[fin] - rsc[fin]).abs().max()) if fin.any() else 0.0
-        n_rep = int(fin.sum())
-        return err, n_rep, (lambda: group_probe(*args, **kw)), \
-            (lambda: group_probe_ref(*args, **kw))
+        kw = dict(num_prows=rec["num_prows"], kk=min(rec["k"], 128))
+        return (lambda: group_probe(*args, **kw),
+                lambda: group_probe_ref(*args, **kw))
 
     max_err = 0.0
-    for name, rec in pick_launches(log):
+    picks = pick_launches(
+        log, "bool", lambda r: (r["n_clauses"], _phase2(r["tables"][5])),
+        ((2, False), (2, True), (4, False), (4, True)),
+    )
+    for (t, p2), rec in picks:
+        name = f"group_probe T{t}_{'p2' if p2 else 'p1'}"
         for ci, (rows, _, _) in enumerate(rec["chunks"]):
-            err, n_rep, _, _ = compare(f"{name}[{ci}]", rec, rows)
+            err, n_rep = _compare(f"{name}[{ci}]", *calls(rec, rows))
             max_err = max(max_err, err)
             print(f"kernel==twin {name} chunk {ci}: W={rows.shape[0]} "
                   f"reported={n_rep} bitwise equal")
-    rec, rows = synthetic_chunk(log)
-    err, n_rep, kern, twin = compare("synthetic", rec, rows)
+    rec, rows = synthetic_rows(log, "bool", SYNTH_W)
+    kern, twin = calls(rec, rows)
+    err, n_rep = _compare("group_probe synthetic", kern, twin)
     max_err = max(max_err, err)
     ms = _time_ms(kern, 20)
     plain_ms = _time_ms(twin, 3)
-    print(f"kernel==twin synthetic: W={rows.shape[0]} T={rec['n_clauses']} "
-          f"kk={min(rec['k'], 128)} reported={n_rep} bitwise equal; "
-          f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    print(f"kernel==twin group_probe synthetic: W={rows.shape[0]} "
+          f"T={rec['n_clauses']} kk={min(rec['k'], 128)} reported={n_rep} "
+          f"bitwise equal; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phrase_probe_vs_twin(log) -> dict:
+    from tantivy_tpu_torch.ops.fused_phrase import _PHRASE_RUNGS
+    from tantivy_tpu_torch.ops.phrase_probe import (
+        phrase_probe,
+        phrase_probe_ref,
+    )
+
+    def calls(rec, rr, rows):
+        args = (rows, rec["qw"], rec["row_th"], rec["cstore"],
+                rec["postore"])
+        kw = dict(n_partners=rec["n_partners"], slab_rows=rr,
+                  num_prows=rec["num_prows"], kk=min(rec["k"], 128))
+        return (lambda: phrase_probe(*args, **kw),
+                lambda: phrase_probe_ref(*args, **kw))
+
+    picks = pick_launches(
+        log, "phrase", lambda r: (r["n_partners"], _phase2(r["row_th"])),
+        ((1, False), (1, True), (3, False), (3, True)),
+    )
+    # both slab rungs: add the first round holding a chunk of a rung that
+    # the picked rounds lack
+    rungs = {c[0] for _, rec in picks for c in rec["chunks"]}
+    for rr, _ in _PHRASE_RUNGS:
+        if rr in rungs:
+            continue
+        rec = next((r for r in log if r["kind"] == "phrase"
+                    and any(c[0] == rr for c in r["chunks"])), None)
+        if rec is None:
+            raise AssertionError(f"main path made no phrase launch with "
+                                 f"{rr}-row slabs")
+        picks.append(((rec["n_partners"], _phase2(rec["row_th"])), rec))
+    max_err = 0.0
+    for (S, p2), rec in picks:
+        name = f"phrase_probe S{S}_{'p2' if p2 else 'p1'}"
+        for ci, (rr, rows, _, _) in enumerate(rec["chunks"]):
+            err, n_rep = _compare(f"{name}[{ci}]", *calls(rec, rr, rows))
+            max_err = max(max_err, err)
+            print(f"kernel==twin {name} chunk {ci}: W={rows.shape[0]} "
+                  f"slab rows={rr} reported={n_rep} bitwise equal")
+    rr = _PHRASE_RUNGS[0][0]
+    rec, rows = synthetic_rows(log, "phrase", SYNTH_W_PHRASE, rr)
+    kern, twin = calls(rec, rr, rows)
+    err, n_rep = _compare("phrase_probe synthetic", kern, twin)
+    max_err = max(max_err, err)
+    ms = _time_ms(kern, 20)
+    plain_ms = _time_ms(twin, 3)
+    print(f"kernel==twin phrase_probe synthetic: W={rows.shape[0]} "
+          f"S={rec['n_partners']} slab rows={rr} kk={min(rec['k'], 128)} "
+          f"reported={n_rep} bitwise equal; kernel {ms:.3f} ms, twin "
+          f"{plain_ms:.3f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -319,8 +425,9 @@ def profile_layers(executor, stream, seed: int, path: str) -> None:
     """Per-layer breakdown of one fresh batch per suite: an untraced batch,
     then another with the engine's host spans (`tantivy_tpu.utils.trace`)
     and `torch.profiler` on. Device time is the sum of the CUDA kernels' and
-    copies' own time (overlap between streams would count twice); idle share is one minus device time over the traced wall
-    time. Writes the breakdown as JSON to `path`."""
+    copies' own time (overlap between streams would count twice); idle
+    share is one minus device time over the traced wall time. Writes the
+    breakdown as JSON to `path`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -390,18 +497,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
+
     from tantivy_tpu_torch import BatchExecutor
-    from tantivy_tpu_torch.ops import _build, group_probe
+    from tantivy_tpu_torch.ops import _build, group_probe, phrase_probe
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     print(f"gpu: {gpu}")
 
+    # one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    _build.load("group_probe")
-    print(f"build: group_probe in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds['group_probe']:.1f} s)")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(_build.load, name) for name in KERNELS]:
+            fut.result()
+    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc " + ", ".join(
+              f"{name} {_build.build_seconds[name]:.1f} s" for name in KERNELS
+          ) + ")")
 
     print(f"index codec: {zstd_codec()}")
     t0 = time.perf_counter()
@@ -416,40 +530,51 @@ def main(argv=None) -> int:
     executor = BatchExecutor(searcher, device="cuda")
     executor.launch_log = []
     group_probe.launches = 0
-    timing, answered = run_main_path(executor, logs, n_seg)
-    launches = group_probe.launches
+    phrase_probe.launches = 0
+    timing, answered = run_main_path(
+        executor, logs, long_phrases(stream, args.seed), n_seg
+    )
+    launches = {"group_probe": group_probe.launches,
+                "phrase_probe": phrase_probe.launches}
     executor.launch_log, log = None, executor.launch_log
     fused = executor._fused()
-    print(f"fused store: {tuple(fused.cstore.shape)} int32 on "
-          f"{fused.cstore.device}; peak device memory "
+    print(f"fused store: cstore {tuple(fused.cstore.shape)} and postore "
+          f"{tuple(fused.postore.shape)} int32 on {fused.cstore.device} "
+          f"({fused.num_pos} positions); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for suite, tm in timing.items():
         print(f"suite {suite}: {tm['qps']:.1f} QPS, p50 {tm['p50_ms']:.1f} ms"
               f" per {BATCH}-query batch, k={K} ({gpu}); "
               f"{tm['host_plans']} of {tm['plans']} (query, segment) plans "
-              f"ran on the host engine")
-    print(f"group_probe launches on the main path: {launches}; "
+              f"ran on the host engine {tm['host_by_reason']}")
+    print(f"launches on the main path: {launches}; "
           f"host_routed={executor.host_routed} "
           f"fallbacks={executor.fallbacks}")
-    if launches == 0:
-        raise AssertionError("the main path launched no group_probe kernel")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the main path launched no {name} kernel")
     if executor.host_routed:
-        raise AssertionError("term/AND/OR queries were routed to the host")
+        raise AssertionError(
+            f"{executor.host_routed} queries were routed to the host engine"
+        )
 
     check_exact(searcher, answered, args.seed)
-    stats = kernel_vs_twin(log)
+    stats = {"group_probe": group_probe_vs_twin(log),
+             "phrase_probe": phrase_probe_vs_twin(log)}
     if args.profile:
         profile_layers(executor, stream, args.seed, args.profile)
 
+    replaces = {"group_probe": "tantivy_tpu/ops/pallas_probe.py:533",
+                "phrase_probe": "tantivy_tpu/ops/pallas_phrase.py:98"}
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": [{
-        "name": "group_probe",
+        "name": name,
         "route": "cuda",
-        "source": "tantivy_tpu_torch/csrc/group_probe.cu",
-        "replaces": "tantivy_tpu/ops/pallas_probe.py:533",
-        "launches": launches,
-        **stats,
-    }]}))
+        "source": f"tantivy_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": launches[name],
+        **stats[name],
+    } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "group_topk.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;
@@ -48,7 +50,6 @@ constexpr int kMaxStride = 256;
 constexpr int kMust = 0;
 constexpr int kShould = 1;
 constexpr int kMustNot = 2;
-constexpr int32_t kTerminated = 0x7fffffff;
 
 // Adds the tf of `doc` to *tf and returns true when `doc` is in the 128
 // ascending doc ids of one cstore row.
@@ -121,7 +122,7 @@ __global__ void __launch_bounds__(kLanes) group_probe_kernel(
       const int32_t doc = crow[lane];
       const int32_t tf_own = crow[kLanes + lane];
       const float cachev = __int_as_float(crow[2 * kLanes + lane]);
-      if (doc == kTerminated || isnan(cachev)) continue;
+      if (doc == tantivy_port::kTerminatedDoc || isnan(cachev)) continue;
 
       float score = 0.0f;
       int cnt_must = 0;
@@ -167,28 +168,9 @@ __global__ void __launch_bounds__(kLanes) group_probe_kernel(
   }
   __syncthreads();
 
-  // rank = number of survivors ordered before this one; ranks are distinct
-  // because flat indices are, so each output slot < min(n, kk) is written once
-  const int n = n_sur;
-  float* osc = out_scores + (long long)g * kk;
-  int32_t* odoc = out_docs + (long long)g * kk;
-  for (int i = lane; i < n; i += kLanes) {
-    const float s = c_score[i];
-    const int32_t f = c_flat[i];
-    int rank = 0;
-    for (int j = 0; j < n; ++j) {
-      const float o = c_score[j];
-      rank += (o > s || (o == s && c_flat[j] < f)) ? 1 : 0;
-    }
-    if (rank < kk) {
-      osc[rank] = s;
-      odoc[rank] = c_doc[i];
-    }
-  }
-  for (int j = min(n, kk) + lane; j < kk; j += kLanes) {
-    osc[j] = -INFINITY;
-    odoc[j] = kTerminated;
-  }
+  tantivy_port::write_group_topk(c_score, c_flat, c_doc, n_sur, kk,
+                                 out_scores + (long long)g * kk,
+                                 out_docs + (long long)g * kk);
 }
 
 }  // namespace

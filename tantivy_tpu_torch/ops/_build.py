@@ -3,9 +3,10 @@
 Each kernel source under `tantivy_tpu_torch/csrc/` compiles to a shared
 library with a plain C interface, loaded with ctypes (no PyTorch headers,
 so a build takes seconds). Libraries land in `build/kernels/` at the repo
-root, named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. Nothing is fetched: the build reads
-only the repo's sources and the local CUDA toolkit.
+root, named by a hash of the source, the headers beside it and the flags,
+so an edited source or header rebuilds and an unchanged one is reused.
+Nothing is fetched: the build reads only the repo's sources and the local
+CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+#: one lock per kernel, so that different kernels build concurrently
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: seconds each library took to build in this process (0.0 = reused)
 build_seconds: dict[str, float] = {}
@@ -51,16 +54,21 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes library built from `csrc/<name>.cu`, compiling it first
-    when no library for the current source and flags exists."""
+    when no library for the current source and flags exists. Different
+    kernels may be loaded from several threads at once; each builds once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         src = os.path.join(_CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+        for path in [src] + [os.path.join(_CSRC, f) for f in headers]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
         build_seconds[name] = 0.0
         if not os.path.exists(out):

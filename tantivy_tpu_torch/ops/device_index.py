@@ -1,10 +1,11 @@
 """Host-side segment mirror for the fused store (numpy only).
 
-Counterpart of `tantivy_tpu/ops/device_index.py`. The fused boolean path
-reads only host fields — the decoded doc/tf blocks, the fieldnorm ids and
-the block and term tables — and ships them to the device once, inside the
-fused store (`ops/fused_store.py`). So this port keeps no device arrays of
-its own: no packed mode, no per-segment uploads, no block gathers.
+Counterpart of `tantivy_tpu/ops/device_index.py`. The fused paths read
+only host fields — the decoded doc/tf blocks, the fieldnorm ids, the block
+and term tables and the flat positions — and ship them to the device once,
+inside the fused store (`ops/fused_store.py`). So this port keeps no device
+arrays of its own: no packed mode, no per-segment uploads, no block
+gathers.
 """
 
 from __future__ import annotations
@@ -32,8 +33,28 @@ class DeviceFieldPostings:
         self.term_doc_freq = arrays["term_doc_freq"]
         self.has_freqs = bool(arrays["has_freqs"][0])
         self.num_blocks = len(self.blk_len)
+        # phrase support: the fused store's position slabs are built from
+        # these (`FusedStore.ensure_positions`)
+        self.term_pos_start = arrays["term_pos_start"]
+        self._positions_np = arrays["positions"]
         self.norm_ids_np = np.ascontiguousarray(norm_ids, dtype=np.uint8)
         self.docs_np, self.tfs_np = self._decode_all(arrays)
+        self._pos_cum_np = None
+
+    def real_tf_flat(self) -> np.ndarray:
+        """Host [NB*128] uint32: tf per store lane, 0 on pad lanes."""
+        return np.where(
+            self.docs_np != np.uint32(TERMINATED), self.tfs_np, np.uint32(0)
+        ).reshape(-1)
+
+    def pos_cum_np(self) -> np.ndarray:
+        """Host exclusive cumsum of real tfs over the flattened block store
+        (pad lanes contribute 0): the position-slice base table."""
+        if self._pos_cum_np is None:
+            flat = self.real_tf_flat()
+            incl = np.cumsum(flat, dtype=np.uint32)
+            self._pos_cum_np = incl - flat
+        return self._pos_cum_np
 
     def _decode_all(self, arrays: dict[str, np.ndarray]):
         """Decode every block once, on the host, with vectorised numpy

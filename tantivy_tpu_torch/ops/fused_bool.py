@@ -380,7 +380,8 @@ def launch_fused_bool(fused, work, tables, k: int, num_queries: int,
             break
         if log is not None:
             log.append(dict(
-                chunks=chunks, tables=table_args, cstore=fused.cstore, k=k,
+                kind="bool", chunks=chunks, tables=table_args,
+                cstore=fused.cstore, k=k,
                 num_queries=num_queries, num_prows=num_prows, n_clauses=T,
             ))
         with debug_time("launch.dispatch"):

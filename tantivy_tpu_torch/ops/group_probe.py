@@ -26,7 +26,14 @@ import torch
 
 from tantivy_tpu.postings.format import TERMINATED
 
-from .probe_scorer import KIND_MUST, KIND_MUST_NOT, KIND_SHOULD, T_MAX
+from .probe_scorer import (
+    KIND_MUST,
+    KIND_MUST_NOT,
+    KIND_SHOULD,
+    T_MAX,
+    check_tensor,
+    group_topk,
+)
 
 #: kernel launches since the last reset (the CPU twin does not count)
 launches = 0
@@ -120,30 +127,10 @@ def group_probe_ref(rows, cl_weight, cl_kind, cl_shipped, req_must,
             & ~has_not
         )
         sc = torch.where(ok, score, float("-inf")).reshape(n, 8 * 128)
-        sur = (sc >= row_th[p][:, None]) & (sc != float("-inf"))
-        n_sur = sur.sum(dim=1, keepdim=True)
-        # survivors all score above every non-survivor, so the first n_sur
-        # of the (score desc, flat asc) order are exactly the survivors
-        top_sc, top_i = torch.sort(sc, dim=1, descending=True, stable=True)
-        keep = torch.arange(kk, device=dev)[None, :] < n_sur
-        out_sc[lo:lo + n] = torch.where(
-            keep, top_sc[:, :kk], float("-inf")
-        )
-        out_doc[lo:lo + n] = torch.where(
-            keep, docs.reshape(n, 8 * 128).gather(1, top_i[:, :kk]),
-            TERMINATED,
+        out_sc[lo:lo + n], out_doc[lo:lo + n] = group_topk(
+            sc, docs.reshape(n, 8 * 128), row_th[p], kk
         )
     return out_sc, out_doc
-
-
-def _check(name, x, dtype, ndim, device):
-    if x.dtype != dtype or x.dim() != ndim or x.device != device:
-        raise ValueError(
-            f"{name}: want {dtype} with {ndim} dims on {device}, got "
-            f"{x.dtype} {tuple(x.shape)} on {x.device}"
-        )
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def group_probe(rows, cl_weight, cl_kind, cl_shipped, req_must, req_should,
@@ -153,20 +140,20 @@ def group_probe(rows, cl_weight, cl_kind, cl_shipped, req_must, req_should,
     CUDA tensors launch the kernel; CPU tensors take `group_probe_ref`."""
     global launches
     dev = rows.device
-    _check("rows", rows, torch.int32, 2, dev)
-    _check("cl_weight", cl_weight, torch.float32, 2, dev)
+    check_tensor("rows", rows, torch.int32, 2, dev)
+    check_tensor("cl_weight", cl_weight, torch.float32, 2, dev)
     Pp, T = cl_weight.shape
     for name, x in (("cl_kind", cl_kind), ("cl_shipped", cl_shipped)):
-        _check(name, x, torch.int32, 2, dev)
+        check_tensor(name, x, torch.int32, 2, dev)
         if tuple(x.shape) != (Pp, T):
             raise ValueError(f"{name} shape {tuple(x.shape)} != {(Pp, T)}")
     for name, x, dt in (("req_must", req_must, torch.int32),
                         ("req_should", req_should, torch.int32),
                         ("row_th", row_th, torch.float32)):
-        _check(name, x, dt, 1, dev)
+        check_tensor(name, x, dt, 1, dev)
         if x.shape[0] != Pp:
             raise ValueError(f"{name} has {x.shape[0]} rows, want {Pp}")
-    _check("cstore", cstore, torch.int32, 2, dev)
+    check_tensor("cstore", cstore, torch.int32, 2, dev)
     if cstore.shape[1] != 384:
         raise ValueError(f"cstore rows hold {cstore.shape[1]} words, not 384")
     if not 1 <= T <= T_MAX:

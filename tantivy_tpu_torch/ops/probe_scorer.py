@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tantivy_tpu.postings.format import TERMINATED
+
 NEG_INF = np.float32(-np.inf)
 
 #: max clauses per boolean query on the device path
@@ -31,6 +33,35 @@ def t_bucket(n: int) -> int:
         if n <= t:
             return t
     raise ValueError(f"too many clauses for device path: {n}")
+
+
+def check_tensor(name, x, dtype, ndim, device):
+    """Raise unless `x` is a contiguous `dtype` tensor of `ndim` dims on
+    `device` (the kernels' wrappers check their inputs with it)."""
+    if x.dtype != dtype or x.dim() != ndim or x.device != device:
+        raise ValueError(
+            f"{name}: want {dtype} with {ndim} dims on {device}, got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def group_topk(sc, docs, th, kk: int):
+    """Per-group top-kk of the kernels' twins: sc [n, 1024] f32 lane scores
+    (-inf = not reporting) in flat (member row, lane) order, docs [n, 1024]
+    i32, th [n] f32. Keeps the lanes with score >= th, ordered (score desc,
+    flat index asc); -inf / TERMINATED fill. Returns ([n, kk], [n, kk])."""
+    sur = (sc >= th[:, None]) & (sc != float("-inf"))
+    n_sur = sur.sum(dim=1, keepdim=True)
+    # survivors all score above every non-survivor, so the first n_sur of
+    # the (score desc, flat asc) order are exactly the survivors
+    top_sc, top_i = torch.sort(sc, dim=1, descending=True, stable=True)
+    keep = torch.arange(kk, device=sc.device)[None, :] < n_sur
+    return (
+        torch.where(keep, top_sc[:, :kk], float("-inf")),
+        torch.where(keep, docs.gather(1, top_i[:, :kk]), TERMINATED),
+    )
 
 
 def _sortable_desc(score):

@@ -1,17 +1,22 @@
-"""Batched search on the port: term, AND and OR batches through the fused
-group-probe kernel.
+"""Batched search on the port: term, AND, OR, phrase and phrase-prefix
+batches through the fused group-probe and position-probe kernels.
 
 Counterpart of `tantivy_tpu/parallel/__init__.py`'s `BatchExecutor`, reduced
-to the boolean fused path. Host planning (termdict lookups, BM25 weights,
-block-max upper bounds, the two-phase WAND threshold, hit collection) is the
-reference's numpy code; only the launch seam points at the port's modules.
-Every term and boolean(term) query runs the one chain
-`_search_boolean_fused` -> `fused_bool.launch_fused_bool` ->
-`fused_bool_topk` -> the group-probe kernel and the merge tail.
-
-Phrase and phrase-prefix queries are not on this slice: `search_batch`
-sends them to the host engine and counts them in `host_routed`. Other query
-types run on the host engine, as in the reference.
+to its fused (Pallas-mode) paths. Host planning (termdict lookups, BM25
+weights, block-max upper bounds, the two-phase WAND threshold, hit
+collection) is the reference's numpy code; only the launch seam points at
+the port's modules. Two chains run on the device:
+* every term and boolean(term) query: `_search_boolean_fused` ->
+  `fused_bool.launch_fused_bool` -> `fused_bool_topk` -> the group-probe
+  kernel and the merge tail;
+* every slop-0 phrase and multi-term phrase-prefix: `_search_phrase_fused`
+  -> `fused_phrase.launch_fused_phrase` -> `fused_phrase_topk` -> the
+  position-probe kernel and the merge tail.
+Single-term phrase-prefixes expand into term sub-queries on the first
+chain. Sloppy phrases, phrases on fields without positions, phrases longer
+than `PHRASE_T_MAX` and every other query type run on the host engine, as
+in the reference; phrase-family queries among them are counted in
+`host_routed`.
 """
 
 from __future__ import annotations
@@ -21,10 +26,13 @@ import torch
 
 from tantivy_tpu.parallel import (
     _Q_FIXED,
+    TERMINATED_U32,
     _chunk_hits,
     _dedup_hits,
+    _k_eff_quant,
     _k_eff_tb,
     _m1,
+    _phase2_keep,
     _q_tier,
     _sortable_desc_np,
     _topk_thresholds,
@@ -37,6 +45,10 @@ from ..ops.fused_store import FusedStore
 
 NEG_INF = np.float32(-np.inf)
 
+#: max terms per phrase(-prefix) query on the device path (the reference's
+#: `ops/phrase_scorer.T_MAX`; partner buckets S = t_bucket(T) - 1 <= 7)
+PHRASE_T_MAX = 8
+
 #: phase-2 threshold-ratchet tuning (per-query units): ratchet when more
 #: than _RATCHET_MIN_PER_Q * Q work items survive phase 1, shipping the
 #: best-UB _RATCHET_TOP_PER_Q * Q items first (tests shrink these to force
@@ -46,7 +58,8 @@ _RATCHET_TOP_PER_Q = 8
 
 
 class BatchExecutor:
-    """Executes batches of term and boolean(term) queries on `device`.
+    """Executes batches of term, boolean(term), phrase and phrase-prefix
+    queries on `device`.
 
     `device` defaults to "cuda" and must exist: nothing silently moves to
     the CPU. On "cpu" every kernel runs its plain PyTorch version."""
@@ -72,7 +85,9 @@ class BatchExecutor:
         # by append order
         self._fused_lock = threading.RLock()
         self._fused_store = FusedStore(dev)
-        #: phrase-family queries sent to the host engine (not on this slice)
+        #: phrase-family queries (and expansion sub-queries) answered by the
+        #: host engine, as the reference answers them: sloppy, too long, on
+        #: a field without positions, or over-truncated prefix expansions
         self.host_routed = 0
         #: (query, segment) plans evaluated on the host engine, by reason
         self.fallbacks: dict[str, int] = {}
@@ -781,12 +796,636 @@ class BatchExecutor:
 
         return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
 
+    # ------------------------------------------------------------------
+    # phrase batches
+
+    def _positions_field(self, field: str) -> bool:
+        from tantivy_tpu.schema import IndexRecordOption
+
+        entry = self.searcher.schema.get_field(field)
+        return (
+            entry.index_record_option()
+            == IndexRecordOption.WITH_FREQS_AND_POSITIONS
+        )
+
+    def _phrase_device_eligible(self, q) -> bool:
+        from tantivy_tpu.query import PhraseQuery
+
+        if type(q) is not PhraseQuery:
+            return False
+        if q.slop != 0 or not 2 <= len(q.term_bytes) <= PHRASE_T_MAX:
+            return False
+        return self._positions_field(q.field)
+
+    def _prefix_device_eligible(self, q) -> bool:
+        """Multi-term PhrasePrefixQuery rides the fused phrase launch
+        directly (per-segment capped expansions as plan rows, see
+        `_search_phrase_fused`); single-term prefixes expand to term
+        sub-queries in `search_batch` instead."""
+        from tantivy_tpu.query import PhrasePrefixQuery
+
+        if type(q) is not PhrasePrefixQuery:
+            return False
+        if not 2 <= len(q.term_bytes) <= PHRASE_T_MAX:
+            return False
+        return self._positions_field(q.field)
+
+    def _expand_phrase_prefix(self, q):
+        """Expand a PhrasePrefixQuery into per-expansion sub-queries for the
+        device paths, or None when device expansion can't reproduce the
+        host semantics (per-segment truncation at max_expansions).
+
+        Exactness: the host merges expansions with max-score-per-doc. If
+        doc d is in the union-max top-k, it is in the top-k of the
+        expansion where it attains its max (any doc beating it there beats
+        it in the union too), so merging the per-expansion top-k lists with
+        dedup-by-address-keep-max is exact."""
+        from tantivy_tpu.query import PhraseQuery, TermQuery
+        from tantivy_tpu.schema.term import Term
+
+        prefix = q.term_bytes[-1]
+        union: set[bytes] = set()
+        for reader in self.searcher.segment_readers():
+            td = reader.inverted_index(q.field).termdict
+            ords = list(td.prefix_ords(prefix))
+            if len(ords) > q.max_expansions:
+                return None  # per-segment truncation: host semantics only
+            union.update(td.term(o) for o in ords)
+        subs = []
+        for tb in sorted(union):
+            if len(q.term_bytes) == 1:
+                subs.append(TermQuery(Term(q.field, tb)))
+            else:
+                subs.append(PhraseQuery(q.field, q.term_bytes[:-1] + [tb]))
+        return subs
+
+    def _phrase_plan_rows(self, q) -> int:
+        """Upper bound on the plan rows one phrase(-prefix) query adds: one
+        per segment for plain phrases; the per-segment CAPPED expansion
+        count for phrase-prefixes (each expansion is its own plan row with
+        its own BM25 weight)."""
+        from tantivy_tpu.query import PhrasePrefixQuery
+
+        readers = self.searcher.segment_readers()
+        if type(q) is not PhrasePrefixQuery:
+            return max(1, len(readers))
+        tot = 0
+        for reader in readers:
+            td = reader.inverted_index(q.field).termdict
+            tot += min(
+                len(td.prefix_ords(q.term_bytes[-1])), q.max_expansions
+            )
+        return max(tot, 1)
+
+    def search_phrase_batch(self, queries: list, k: int):
+        """Batched slop-0 phrase and multi-term phrase-prefix queries on
+        the device (the fused path; the reference's XLA path is not
+        ported). Returns list[list[(score, DocAddress)]]."""
+        return self._search_phrase_fused(queries, k)
+
+    def _search_phrase_fused(self, queries: list, k: int):
+        """Fused phrase batch: the position-probe kernel, one launch round
+        per phase (see `ops/fused_phrase.py`). Work items anchor on the
+        rarest term's blocks; anchor blocks whose own position slab exceeds
+        the anchor cap, or whose partner spans exceed the widest rung, are
+        re-anchored through the densest other term (all phrase terms are
+        MUSTs, so any term's blocks cover every match in their doc range);
+        re-anchoring can double-report docs with identical exact scores,
+        which the merge tail's dedup-by-address absorbs. Irreducibly wide
+        (query, segment) plans fall back to exact host evaluation (counted
+        in `fallbacks["phrase_wide"]`).
+
+        PhrasePrefixQuery rides the SAME launch: each (query, segment,
+        expansion) becomes its own plan row (the segment's capped
+        `prefix_ords` range in term order, exactly the host truncation)
+        carrying that expansion's own BM25 weight; all rows share the
+        query's qid and the merge tail's dedup-keep-max realizes the
+        union-max expansion semantics exactly."""
+        from tantivy_tpu.query import PhrasePrefixQuery
+        from tantivy_tpu.schema.term import Term
+
+        from ..ops import fused_phrase as fp
+        from ..ops.probe_scorer import t_bucket
+
+        Q = len(queries)
+        if Q == 0:
+            return []
+        readers = self.searcher.segment_readers()
+        # plan rows (one per (query, segment, expansion) with all terms
+        # present) fill a fixed plan-row tier: sub-batch beyond it
+        max_tb = max(t_bucket(len(q.term_bytes)) for q in queries)
+        tier = self._prow_tier(0, max_tb)
+        rows_of = [self._phrase_plan_rows(q) for q in queries]
+        if Q > 1 and (Q > _Q_FIXED or sum(rows_of) > tier):
+            # greedy row-budget chunking (recursing per chunk)
+            out = []
+            lo = 0
+            acc = 0
+            for i in range(Q):
+                if i > lo and (acc + rows_of[i] > tier or i - lo >= _Q_FIXED):
+                    out.extend(self._search_phrase_fused(queries[lo:i], k))
+                    lo, acc = i, 0
+                acc += rows_of[i]
+            out.extend(self._search_phrase_fused(queries[lo:], k))
+            return out
+        if rows_of and rows_of[0] > tier and Q == 1:
+            # a single query's expansion rows exceed the tier: exact host
+            from tantivy_tpu.collector import TopDocs
+
+            self._count_fallback("phrase_rows_overflow")
+            return [self.searcher.search(queries[0], TopDocs(k))]
+        Qp = _q_tier(Q)
+        wcache: dict = {}
+
+        def _w_terms(field: str, term_bytes: list[bytes]) -> np.float32:
+            key = (field, tuple(term_bytes))
+            w = wcache.get(key)
+            if w is None:
+                fs = self._field_stats.get(field)
+                if fs is None:
+                    fs = self.searcher.field_statistics(field)
+                    self._field_stats[field] = fs
+                dfs = [
+                    self.searcher.doc_freq(Term(field, tb))
+                    for tb in term_bytes
+                ]
+                w = wcache[key] = Bm25Weight.for_terms(
+                    dfs, fs.total_num_docs, fs.average_fieldnorm
+                ).weight
+            return w
+
+        for seg_ord in range(len(readers)):
+            for f in {q.field for q in queries}:
+                self._ensure_fused_slab(seg_ord, f)
+        fused = self._fused().ready()
+        with self._fused_lock:
+            fused.ensure_positions()
+        blk_pos = fused.blk_pos
+
+        M1 = _m1()
+        per_query: list[list] = [[] for _ in range(Q)]
+        groups: dict[int, dict] = {}  # keyed by n_partners bucket
+
+        def overlaps(ids, s2, n2):
+            lo = fused.blk_base[ids].astype(np.uint64)
+            hi = fused.blk_last_doc[ids].astype(np.uint64)
+            i0 = s2 + np.searchsorted(
+                fused.blk_last_doc[s2:s2 + n2], lo, side="left"
+            )
+            i1 = s2 + np.searchsorted(
+                fused.blk_base[s2:s2 + n2], hi, side="right"
+            )
+            return i0, i1
+
+        def plan_anchor(qw, anchor, regions, offsets, ids):
+            """Work columns for anchor-term blocks `ids` (global): returns
+            the items dict; `bad` marks a fat anchor slab or an over-wide
+            partner span. `qw` = the plan row's phrase weight."""
+            T = len(regions)
+            n = len(ids)
+            lpos = blk_pos[ids].astype(np.int64)
+            llen = blk_pos[ids + 1] - lpos
+            S = t_bucket(T) - 1
+            cpos = np.zeros((n, S), dtype=np.int64)
+            clen = np.zeros((n, S), dtype=np.int64)
+            delta = np.zeros((n, S), dtype=np.int64)
+            drop = np.zeros(n, dtype=bool)
+            span = np.zeros(n, dtype=np.int64)
+            # UB factor: phrase tf <= every term's tf in the doc, so the
+            # anchor's block-max tf-factor AND each partner's windowed
+            # block-max both dominate the phrase factor: take the min (all
+            # f32, rounding monotone, so `ub >= score` stays bit-exact)
+            fac = fused.bfac[ids].copy()
+            slot = 0
+            for t in range(T):
+                if t == anchor:
+                    continue
+                s2, n2 = regions[t]
+                i0, i1 = overlaps(ids, s2, n2)
+                drop |= i1 <= i0  # a phrase term is a MUST
+                fac = np.minimum(fac, fused.rmax.query(i0, i1))
+                p0 = blk_pos[i0]
+                p1 = blk_pos[i1]
+                cpos[:, slot] = p0
+                clen[:, slot] = p1 - p0
+                delta[:, slot] = offsets[t] - offsets[anchor]
+                span = np.maximum(span, p1 - p0)
+                slot += 1
+            bad = (llen > fp.ANCHOR_POS_CAP) | (span > fp.PARTNER_POS_CAP)
+            ub = (np.float32(qw) * fac).astype(np.float32)
+            keep = ~drop
+            return {
+                "ids": ids[keep], "lpos": lpos[keep], "llen": llen[keep],
+                "cpos": cpos[keep], "clen": clen[keep],
+                "delta": delta[keep], "span": span[keep], "ub": ub[keep],
+                "bad": bad[keep],
+                "anchor": np.full(int(keep.sum()), anchor, dtype=np.int64),
+            }
+
+        def plan_anchors_batched(calls):
+            """Vectorized `plan_anchor` over many (qw, anchor, regions,
+            offsets, ids) calls: ONE composite-key searchsorted
+            (`FusedStore.region_keys`) replaces the per-(query, segment,
+            partner) sub-array searches; per-partner f32 `min` folds are
+            exact and commutative, so results equal the per-call loop's."""
+            if not calls:
+                return []
+            ns_ = np.array([len(c[4]) for c in calls], dtype=np.int64)
+            offs = np.zeros(len(calls) + 1, dtype=np.int64)
+            np.cumsum(ns_, out=offs[1:])
+            R = int(offs[-1])
+            ids = (np.concatenate([c[4] for c in calls]) if R
+                   else np.zeros(0, dtype=np.int64))
+            lpos = blk_pos[ids].astype(np.int64)
+            llen = blk_pos[ids + 1] - lpos
+            lo = fused.blk_base[ids].astype(np.uint64)
+            hi = fused.blk_last_doc[ids].astype(np.uint64)
+            S_max = 1
+            p_call, p_slot, p_s2, p_delta = [], [], [], []
+            for c_i, (_, anchor, regions, offsets_, _) in enumerate(calls):
+                T = len(regions)
+                S_max = max(S_max, t_bucket(T) - 1)
+                slot = 0
+                for t in range(T):
+                    if t == anchor:
+                        continue
+                    p_call.append(c_i)
+                    p_slot.append(slot)
+                    p_s2.append(regions[t][0])
+                    p_delta.append(offsets_[t] - offsets_[anchor])
+                    slot += 1
+            cpos = np.zeros((R, S_max), dtype=np.int64)
+            clen = np.zeros((R, S_max), dtype=np.int64)
+            delta = np.zeros((R, S_max), dtype=np.int64)
+            drop = np.zeros(R, dtype=bool)
+            span = np.zeros(R, dtype=np.int64)
+            fac = fused.bfac[ids].copy()
+            if p_call:
+                p_call_a = np.array(p_call, dtype=np.int64)
+                cnt = ns_[p_call_a]
+                pofs = np.zeros(len(p_call_a) + 1, dtype=np.int64)
+                np.cumsum(cnt, out=pofs[1:])
+                P = int(pofs[-1])
+                rix = (
+                    np.repeat(offs[p_call_a] - pofs[:-1], cnt)
+                    + np.arange(P, dtype=np.int64)
+                )
+                sh = np.uint64(32)
+                rid = np.repeat(np.array(p_s2, dtype=np.uint64), cnt) << sh
+                cblast, cbbase = fused.region_keys
+                i0 = np.searchsorted(cblast, rid | lo[rix], side="left")
+                i1 = np.searchsorted(cbbase, rid | hi[rix], side="right")
+                bad_ov = i1 <= i0
+                if bad_ov.any():
+                    drop[rix[bad_ov]] = True
+                ov = fused.rmax.query(i0, i1)
+                p0 = blk_pos[i0]
+                p1 = blk_pos[i1]
+                col = np.repeat(np.array(p_slot, dtype=np.int64), cnt)
+                cpos[rix, col] = p0
+                clen[rix, col] = p1 - p0
+                delta[rix, col] = np.repeat(
+                    np.array(p_delta, dtype=np.int64), cnt
+                )
+                for s_i in range(S_max):
+                    sel = col == s_i
+                    if not sel.any():
+                        continue
+                    r_s = rix[sel]
+                    fac[r_s] = np.minimum(fac[r_s], ov[sel])
+                    span[r_s] = np.maximum(span[r_s], (p1 - p0)[sel])
+            qw_rows = np.repeat(
+                np.array([np.float32(c[0]) for c in calls],
+                         dtype=np.float32),
+                ns_,
+            )
+            ub = (qw_rows * fac).astype(np.float32)
+            bad = (llen > fp.ANCHOR_POS_CAP) | (span > fp.PARTNER_POS_CAP)
+            anchors = np.repeat(
+                np.array([c[1] for c in calls], dtype=np.int64), ns_
+            )
+            out = []
+            for c_i, (_, _, regions, _, _) in enumerate(calls):
+                s, e = int(offs[c_i]), int(offs[c_i + 1])
+                keep = ~drop[s:e]
+                S = t_bucket(len(regions)) - 1
+
+                def cut(a):
+                    part = a[s:e]
+                    return part[keep] if not keep.all() else part
+
+                out.append({
+                    "ids": cut(ids), "lpos": cut(lpos), "llen": cut(llen),
+                    "cpos": cut(cpos)[:, :S], "clen": cut(clen)[:, :S],
+                    "delta": cut(delta)[:, :S], "span": cut(span),
+                    "ub": cut(ub), "bad": cut(bad), "anchor": cut(anchors),
+                })
+            return out
+
+        _dtp = debug_time("phrase.plan")
+        _dtp.__enter__()
+        phrase_plans = []
+        anchor_calls = []
+        for seg_ord, reader in enumerate(readers):
+            for qi, q in enumerate(queries):
+                field = q.field
+                T = len(q.term_bytes)
+                is_prefix = type(q) is PhrasePrefixQuery
+                fixed = q.term_bytes[:-1] if is_prefix else q.term_bytes
+                ords = [
+                    self._term_ord(seg_ord, reader, field, tb) for tb in fixed
+                ]
+                if any(o < 0 for o in ords):
+                    continue
+                offsets = list(range(T)) if is_prefix else q.offsets
+                if is_prefix:
+                    # one plan row per CAPPED expansion (host truncation
+                    # semantics: first max_expansions ords in term order,
+                    # per segment)
+                    td = reader.inverted_index(field).termdict
+                    exp_ords = list(
+                        td.prefix_ords(q.term_bytes[-1])
+                    )[:q.max_expansions]
+                    expansions = [(eo, td.term(eo)) for eo in exp_ords]
+                else:
+                    expansions = [(ords[-1], None)]
+                    ords = ords[:-1]
+                for eo, etb in expansions:
+                    regions = [
+                        fused.region(seg_ord, field, o) for o in ords
+                    ] + [fused.region(seg_ord, field, eo)]
+                    if is_prefix:
+                        w = _w_terms(field, fixed + [etb])
+                    else:
+                        w = _w_terms(field, q.term_bytes)
+                    leader = min(range(T), key=lambda t: regions[t][1])
+                    s0, n0 = regions[leader]
+                    anchor_calls.append((
+                        w, leader, regions, offsets,
+                        np.arange(s0, s0 + n0, dtype=np.int64),
+                    ))
+                    phrase_plans.append(
+                        (seg_ord, reader, qi, q, T, regions, leader, w,
+                         offsets)
+                    )
+        batched = plan_anchors_batched(anchor_calls)
+
+        fell: set = set()  # (qi, seg_ord) already host-fallbacked
+        pending_rows: dict[int, list] = {}  # qi -> [(Sb, prow, seg, staged)]
+        for (seg_ord, reader, qi, q, T, regions, leader, w, offsets), \
+                plan in zip(phrase_plans, batched):
+            if (qi, seg_ord) in fell:
+                continue
+            staged = [(leader, plan)]
+            fallback = False
+            if plan["bad"].any():
+                others_nblk = [
+                    (regions[t][1], t) for t in range(T) if t != leader
+                ]
+                t_alt = max(others_nblk)[1]
+                s2, n2 = regions[t_alt]
+                bad_ids = plan["ids"][plan["bad"]]
+                # doc-level alt-block selection: when the bad anchor blocks
+                # are few (a rare term whose sparse blocks span the whole
+                # segment, as every phrase-prefix expansion does), decode
+                # their doc ids from the slab's host cstore and keep only
+                # alt blocks CONTAINING one, instead of every alt block in
+                # the doc-range overlap. Exact: a phrase match needs all
+                # terms in the doc, so a matching doc's alt block always
+                # holds one of these docs.
+                if len(bad_ids) <= 64:
+                    slab = fused.slabs[(seg_ord, q.field)]
+                    local = bad_ids - slab["offset"]
+                    docs = slab["cstore"][local, 0:128].ravel()
+                    docs = docs[docs != TERMINATED_U32]
+                    lastd = fused.blk_last_doc[s2:s2 + n2]
+                    j = s2 + np.searchsorted(lastd, docs)
+                    union = np.unique(j[j < s2 + n2]).astype(np.int64)
+                else:
+                    i0, i1 = overlaps(bad_ids, s2, n2)
+                    union = np.unique(
+                        np.concatenate(
+                            [np.arange(a, b) for a, b in zip(i0, i1)]
+                            or [np.zeros(0, dtype=np.int64)]
+                        )
+                    )
+                plan2 = plan_anchor(w, t_alt, regions, offsets, union)
+                if plan2["bad"].any():
+                    fallback = True
+                else:
+                    # drop the bad originals; the re-anchored items cover them
+                    good = ~plan["bad"]
+                    plan = {kk_: vv[good] for kk_, vv in plan.items()}
+                    staged = [(leader, plan), (t_alt, plan2)]
+                    self._count_plan("phrase_reanchor")
+            if fallback:
+                # once per (query, segment): the host result is the exact
+                # union-max over ALL expansions, so any expansion rows of
+                # this pair already staged stay sound (dedup keeps max)
+                fell.add((qi, seg_ord))
+                per_query[qi].append(
+                    self._host_segment_topk(q, seg_ord, reader, k)
+                )
+                self._count_fallback("phrase_wide")
+                continue
+            if sum(len(p["ids"]) for _, p in staged) == 0:
+                continue
+
+            Sb = t_bucket(T) - 1
+            g = groups.get(Sb)
+            if g is None:
+                g = groups[Sb] = {"qw_rows": [], "p1": [], "rest": []}
+            prow = len(g["qw_rows"])
+            g["qw_rows"].append(w)
+            self._count_plan(
+                "wand_candidates", sum(len(p["ids"]) for _, p in staged)
+            )
+            pending_rows.setdefault(qi, []).append(
+                (Sb, prow, seg_ord, staged)
+            )
+
+        # phase-1 slice with a per-QUERY budget: M1 best-UB items per
+        # (query, segment-with-rows) shared ACROSS the query's plan rows (a
+        # phrase-prefix has one row per (segment, expansion)). Phase 2
+        # prunes the remainder against exact thresholds, so results do not
+        # depend on the split.
+        for qi, rows in pending_rows.items():
+            segs_q = {so for _, _, so, _ in rows}
+            budget = M1 * max(len(segs_q), 1)
+            all_ub = np.concatenate(
+                [p["ub"] for _, _, _, staged in rows for _, p in staged]
+            )
+            if len(all_ub) <= budget:
+                cut = NEG_INF
+            else:
+                cut = np.partition(all_ub, len(all_ub) - budget)[
+                    len(all_ub) - budget
+                ]
+            taken = 0
+            for Sb, prow, seg_ord, staged in rows:
+                g = groups[Sb]
+                for _, p in staged:
+                    pick = p["ub"] >= cut
+                    extra = int(pick.sum()) - (budget - taken)
+                    if extra > 0:
+                        selidx = np.nonzero(pick)[0]
+                        pick[selidx[len(selidx) - extra:]] = False
+                    taken += int(pick.sum())
+                    self._count_plan("wand_p1", int(pick.sum()))
+                    for name, sel in (("p1", pick), ("rest", ~pick)):
+                        if sel.any():
+                            g[name].append(
+                                (prow, qi, seg_ord,
+                                 {kk_: vv[sel] for kk_, vv in p.items()})
+                            )
+
+        def build_work(items):
+            cols = {
+                key: np.concatenate([p[key] for _, _, _, p in items])
+                for key in ("ids", "lpos", "llen", "cpos", "clen", "delta",
+                            "anchor")
+            }
+
+            def per_item(i):
+                return np.concatenate([
+                    np.full(len(it[3]["ids"]), it[i], np.int32)
+                    for it in items
+                ])
+
+            return (
+                cols["ids"], per_item(0), per_item(1), per_item(2),
+                cols["lpos"], cols["llen"], cols["cpos"], cols["clen"],
+                cols["delta"], cols["anchor"],
+            )
+
+        def launch(items, qw_table, Sb, row_th=None):
+            return fp.launch_fused_phrase(
+                fused, build_work(items), qw_table, Sb,
+                _k_eff_quant(min(2 * k, 128)), Qp, row_th=row_th,
+                log=self.launch_log,
+            )
+
+        def th_table(qw_table, items, th):
+            rt = np.full(len(qw_table), NEG_INF, dtype=np.float32)
+            for prow, qi, _, _ in items:
+                rt[prow] = th[qi]
+            return rt
+
+        _dtp.__exit__(None, None, None)
+        pending1 = []
+        tb_qw = {}
+        with debug_time("phrase.dispatch1"):
+            for Sb, g in groups.items():
+                # the plan-row table is padded to the fixed tier, as the
+                # boolean path's tables are
+                tier = self._prow_tier(len(g["qw_rows"]), Sb + 1)
+                if len(g["qw_rows"]) > tier:
+                    raise AssertionError(
+                        "plan rows exceed the fixed prow tier"
+                    )
+                qw_table = np.zeros(tier + 1, dtype=np.float32)
+                qw_table[:len(g["qw_rows"])] = g["qw_rows"]
+                tb_qw[Sb] = qw_table
+                if g["p1"]:
+                    pending1.extend(launch(g["p1"], qw_table, Sb))
+        with debug_time("phrase.collect1", n=len(pending1)):
+            self._collect_flat(pending1, per_query)
+        th, th_seg, th_doc = _topk_thresholds(per_query, k)
+
+        # phase 2 with the same threshold RATCHET as the boolean path: when
+        # many anchor blocks survive (phrase UBs are loose: UB assumes
+        # phrase tf = leader tf), ship the best-UB slice, re-tighten, then
+        # prune the bulk. Thresholds only rise, so pruning stays exact.
+        def _keep_groups(groups_rest, th, th_seg, th_doc):
+            out = {}
+            for Sb, rest in groups_rest.items():
+                kept = []
+                for prow, qi, seg_ord, p in rest:
+                    keep = _phase2_keep(
+                        p["ub"], fused.blk_base[p["ids"]], seg_ord,
+                        th[qi], th_seg[qi], th_doc[qi],
+                    )
+                    if keep.any():
+                        kept.append(
+                            (prow, qi, seg_ord,
+                             {kk_: vv[keep] for kk_, vv in p.items()})
+                        )
+                out[Sb] = kept
+            return out
+
+        surv = _keep_groups(
+            {Sb: g["rest"] for Sb, g in groups.items()}, th, th_seg, th_doc
+        )
+        total_surv = sum(
+            len(p["ids"]) for items in surv.values() for _, _, _, p in items
+        )
+        if total_surv > _RATCHET_MIN_PER_Q * Q:
+            self._count_plan("phrase_ratchet")
+            all_ub = np.concatenate(
+                [p["ub"] for items in surv.values() for _, _, _, p in items]
+            )
+            top = min(max(_RATCHET_TOP_PER_Q * Q, 1), len(all_ub))
+            cut_a = np.partition(all_ub, len(all_ub) - top)[len(all_ub) - top]
+            pending_a = []
+            remainder = {}
+            with debug_time("phrase.dispatch2a"):
+                for Sb, items in surv.items():
+                    round_a, rest = [], []
+                    for prow, qi, seg_ord, p in items:
+                        sel = p["ub"] >= cut_a
+                        if sel.any():
+                            round_a.append(
+                                (prow, qi, seg_ord,
+                                 {kk_: vv[sel] for kk_, vv in p.items()})
+                            )
+                        if (~sel).any():
+                            rest.append(
+                                (prow, qi, seg_ord,
+                                 {kk_: vv[~sel] for kk_, vv in p.items()})
+                            )
+                    remainder[Sb] = rest
+                    if round_a:
+                        self._count_plan(
+                            "wand_p2",
+                            sum(len(p["ids"]) for _, _, _, p in round_a),
+                        )
+                        pending_a.extend(launch(
+                            round_a, tb_qw[Sb], Sb,
+                            th_table(tb_qw[Sb], round_a, th),
+                        ))
+            with debug_time("phrase.collect2a", n=len(pending_a)):
+                self._collect_flat(pending_a, per_query)
+            th, th_seg, th_doc = _topk_thresholds(per_query, k)
+            surv = _keep_groups(remainder, th, th_seg, th_doc)
+
+        pending2 = []
+        with debug_time("phrase.dispatch2"):
+            for Sb, items in surv.items():
+                if not items:
+                    continue
+                self._count_plan(
+                    "wand_p2", sum(len(p["ids"]) for _, _, _, p in items)
+                )
+                pending2.extend(launch(
+                    items, tb_qw[Sb], Sb, th_table(tb_qw[Sb], items, th),
+                ))
+        with debug_time("phrase.collect2", n=len(pending2)):
+            self._collect_flat(pending2, per_query)
+
+        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
+
+    # ------------------------------------------------------------------
+    # routing
+
     def search_batch(self, queries: list, k: int):
-        """Batched top-k search: term, boosted-term and boolean(term)
-        queries (and dismax over terms with tie_breaker 0, expanded into
-        term sub-queries) run the fused boolean path on the device. Phrase
-        and phrase-prefix queries go to the host engine, counted in
-        `host_routed`; every other query type runs on the host engine.
+        """Batched top-k search, routed as the reference routes it in
+        Pallas mode. Term, boosted-term and boolean(term) queries (and
+        dismax over terms with tie_breaker 0, and single-term
+        phrase-prefixes, both expanded into term sub-queries) run the fused
+        boolean path; slop-0 phrases and multi-term phrase-prefixes run the
+        fused phrase path. Expansion sub-query results merge by
+        dedup-keep-max. Every other query runs on the host engine; the
+        phrase-family ones among them count in `host_routed`.
         Returns list[list[(score, DocAddress)]]."""
         from tantivy_tpu.collector import TopDocs
         from tantivy_tpu.query import (
@@ -800,23 +1439,34 @@ class BatchExecutor:
         results: list = [None] * n_orig
         queries = list(queries)
 
-        # dismax with tie_breaker 0 over term clauses: score = max over
-        # clause scores, so the union-max of per-clause top-k lists (dedup
-        # keep-max) is the exact top-k
+        # expansions: sub-queries appended to the batch. Exact for
+        # phrase-prefix (the host merges expansions max-per-doc) and for
+        # dismax with tie_breaker 0 (score = max over clause scores, so the
+        # union-max of per-clause top-k lists is the exact top-k)
         sub_of: dict[int, list[int]] = {}
         for i in range(n_orig):
             q = queries[i]
-            if (
+            subs = None
+            if isinstance(q, PhrasePrefixQuery):
+                if self._prefix_device_eligible(q):
+                    continue  # rides the fused phrase launch directly
+                subs = self._expand_phrase_prefix(q)
+                if subs is None:
+                    self._count_fallback("phrase_prefix_trunc")
+                    continue
+            elif (
                 isinstance(q, DisjunctionMaxQuery)
                 and q.tie_breaker == 0.0
                 and q.queries
                 and all(self._term_clause(c) is not None for c in q.queries)
             ):
-                sub_of[i] = list(range(len(queries),
-                                       len(queries) + len(q.queries)))
-                queries.extend(q.queries)
+                subs = q.queries
+            if subs is None:
+                continue
+            sub_of[i] = list(range(len(queries), len(queries) + len(subs)))
+            queries.extend(subs)
 
-        bool_ids = []
+        bool_ids, phrase_ids = [], []
         for i, q in enumerate(queries):
             if self._term_clause(q) is not None:
                 # single-SHOULD boolean == term query (identical scores and
@@ -825,20 +1475,32 @@ class BatchExecutor:
                 bool_ids.append(i)
             elif self._bool_device_eligible(q):
                 bool_ids.append(i)
-        device = self._search_boolean_fused([queries[i] for i in bool_ids], k)
-        by_id = dict(zip(bool_ids, device))
+            elif (self._phrase_device_eligible(q)
+                  or self._prefix_device_eligible(q)):
+                phrase_ids.append(i)
+        done = dict(zip(
+            bool_ids,
+            self._search_boolean_fused([queries[i] for i in bool_ids], k),
+        ))
+        done.update(zip(
+            phrase_ids,
+            self.search_phrase_batch([queries[i] for i in phrase_ids], k),
+        ))
+
+        def answer(i):
+            if i in done:
+                return done[i]
+            if isinstance(queries[i], (PhraseQuery, PhrasePrefixQuery)):
+                self.host_routed += 1
+            return self.searcher.search(queries[i], TopDocs(k))
 
         for i in range(n_orig):
             if i in sub_of:
-                hits = [h for j in sub_of[i] for h in by_id[j]]
+                hits = [h for j in sub_of[i] for h in answer(j)]
                 _dedup_hits(hits)
                 results[i] = hits[:k]
-            elif i in by_id:
-                results[i] = by_id[i]
             else:
-                if isinstance(queries[i], (PhraseQuery, PhrasePrefixQuery)):
-                    self.host_routed += 1
-                results[i] = self.searcher.search(queries[i], TopDocs(k))
+                results[i] = answer(i)
         return results
 
     def _collect_flat(self, pending, per_query):
