@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
    card's name and power limit;
-2. build: compiles the group-probe and phrase-probe kernels from
-   `tantivy_tpu_torch/csrc` with nvcc into `build/kernels/`, both at once;
+2. build: compiles the group-probe, phrase-probe and windowed-probe kernels
+   from `tantivy_tpu_torch/csrc` with nvcc into `build/kernels/`, all at
+   once;
 3. index: a Zipf corpus (one `body` TEXT field, windows of 20-100 tokens
    over a 30,000-word token stream built from the seed), committed in 4
    segments;
@@ -18,18 +19,27 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    every kernel launch counter reset just before and read just after;
    prints per-suite QPS, p50 batch latency and how many (query, segment)
    plans the planner sent to the host engine, by reason;
-5. exactness: sampled queries of every suite must give the host engine's
-   hits (DocAddresses, order and f32 score bits);
-6. kernel vs twin: real launch chunks captured from the main path (group
+5. probe path: `executor.search_boolean_batch` (the per-segment Block-WAND
+   path: the windowed-probe kernel and the deep per-lane probe) on the
+   term (each query wrapped as a one-clause union), AND, OR and 3-4 clause
+   logs, one warm and TIMED_BATCHES timed batches each, with every launch
+   counter reset just before and read just after; prints per suite QPS,
+   p50, windowed-probe launches per rung, deep-path launches and host
+   plans, then the phase's peak device memory;
+6. exactness: sampled queries of every suite of both paths must give the
+   host engine's hits (DocAddresses, order and f32 score bits);
+7. kernel vs twin: real launch chunks captured from both paths (group
    probe: phase 1 and phase 2 with thresholds, clause buckets 2 and 4;
    phrase probe: phase 1 and phase 2, partner buckets 1 and 3, both slab
-   rungs) and one synthetic chunk per kernel at its largest tier run
+   rungs; windowed probe: phases 1 and 2, clause buckets 2 and 4, every
+   rung seen) and synthetic chunks at the largest tiers (one per kernel,
+   and a second windowed-probe chunk at W = 8,192, kw = 64, T = 4) run
    through the kernel and its plain PyTorch twin on the card; scores must
    be bitwise equal and docs equal; prints both times;
-7. with `--profile PATH` only: one more fresh batch per timed suite with
-   the engine's host spans and `torch.profiler` on; the per-layer
-   breakdown (host span ms, device ms per kernel, idle share) goes to PATH
-   as JSON.
+8. with `--profile PATH` only: one more fresh batch per timed suite of
+   both paths with the engine's host spans and `torch.profiler` on; the
+   per-layer breakdown (host span ms, device ms per kernel, idle share)
+   goes to PATH as JSON.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.
 """
@@ -54,7 +64,13 @@ SEGMENTS = 4
 SYNTH_W = 65536
 #: the phrase kernel's synthetic chunk: the widest W tier of the 24-row rung
 SYNTH_W_PHRASE = 32768
-KERNELS = ("group_probe", "phrase_probe")
+#: the windowed-probe kernel's synthetic chunks: (W, kw, T) at the largest
+#: W tier of the narrowest and of the widest rung
+SYNTH_PROBE = ((65536, 2, 2), (8192, 64, 4))
+#: the boolean suites the probe path runs
+PROBE_SUITES = ("term", "and", "or", "multi")
+#: the windowed-probe kernel's rungs (window rows kw)
+PROBE_RUNGS = (2, 8, 64)
 
 
 def gpu_line() -> str:
@@ -199,35 +215,42 @@ def bits(hits):
     return [(int(np.float32(s).view(np.int32)), a) for s, a in hits]
 
 
+def timed_batches(search, qlog):
+    """TIMED_BATCHES fresh batches of `qlog` after the first (the caller's
+    warm batch) through `search`: (QPS, p50 ms, (query, hits) pairs)."""
+    import torch
+
+    spans, pairs = [], []
+    for b in range(1, 1 + TIMED_BATCHES):
+        batch = qlog[b * BATCH:(b + 1) * BATCH]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = search(batch, K)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        pairs.extend(zip(batch, res))
+    return len(pairs) / sum(spans), float(np.median(spans)) * 1e3, pairs
+
+
 def run_main_path(executor, logs, long_batch, n_seg: int):
     """One warm batch per suite, then TIMED_BATCHES fresh batches, then the
     untimed batch of longer phrases; returns per-suite timings, with the
     (query, segment) plans of the timed batches that the planner sent to
     the host engine by reason, and the (query, hits) pairs of the timed
     batches and of the longer phrases."""
-    import torch
-
     timing, answered = {}, {}
     for suite, qlog in logs.items():
         executor.search_batch(qlog[:BATCH], K)
         before = dict(executor.fallbacks)
-        spans, pairs = [], []
-        for b in range(1, 1 + TIMED_BATCHES):
-            batch = qlog[b * BATCH:(b + 1) * BATCH]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = executor.search_batch(batch, K)
-            torch.cuda.synchronize()
-            spans.append(time.perf_counter() - t0)
-            pairs.extend(zip(batch, res))
+        qps, p50_ms, pairs = timed_batches(executor.search_batch, qlog)
         by_reason = {
             why: n - before.get(why, 0)
             for why, n in executor.fallbacks.items()
             if n != before.get(why, 0)
         }
         timing[suite] = {
-            "qps": len(pairs) / sum(spans),
-            "p50_ms": float(np.median(spans)) * 1e3,
+            "qps": qps,
+            "p50_ms": p50_ms,
             "host_plans": sum(by_reason.values()),
             "host_by_reason": by_reason,
             "plans": len(pairs) * n_seg,
@@ -236,6 +259,45 @@ def run_main_path(executor, logs, long_batch, n_seg: int):
     answered["phrase34"] = list(
         zip(long_batch, executor.search_batch(long_batch, K))
     )
+    return timing, answered
+
+
+def probe_logs(logs) -> dict:
+    """The probe path's suites: the boolean logs, each term query wrapped
+    as a one-clause union (`search_boolean_batch` takes booleans only)."""
+    import tantivy_tpu_torch as tt
+
+    out = {suite: logs[suite] for suite in PROBE_SUITES}
+    out["term"] = [tt.BooleanQuery.union([q]) for q in out["term"]]
+    return out
+
+
+def run_probe_path(executor, logs, n_seg: int):
+    """`search_boolean_batch` on the boolean suites: one warm batch, then
+    TIMED_BATCHES fresh batches per suite. Returns per-suite timings, with
+    the timed batches' windowed-probe launches per rung, deep-path launches
+    and host plans, and the (query, hits) pairs of the timed batches."""
+    timing, answered = {}, {}
+    for suite, qlog in probe_logs(logs).items():
+        executor.search_boolean_batch(qlog[:BATCH], K)
+        fb0 = sum(executor.fallbacks.values())
+        stats0 = dict(executor.plan_stats)
+        qps, p50_ms, pairs = timed_batches(executor.search_boolean_batch,
+                                           qlog)
+
+        def launched(kind):
+            return (executor.plan_stats.get(kind, 0)
+                    - stats0.get(kind, 0))
+
+        timing[suite] = {
+            "qps": qps,
+            "p50_ms": p50_ms,
+            "k3_by_kw": {kw: launched(f"probe_kw{kw}") for kw in PROBE_RUNGS},
+            "deep": launched("probe_deep"),
+            "host_plans": sum(executor.fallbacks.values()) - fb0,
+            "plans": len(pairs) * n_seg,
+        }
+        answered[f"probe_{suite}"] = pairs
     return timing, answered
 
 
@@ -421,10 +483,62 @@ def phrase_probe_vs_twin(log) -> dict:
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
+def bool_probe_vs_twin(log) -> dict:
+    from tantivy_tpu_torch.ops.bool_probe import bool_probe, bool_probe_ref
+
+    def calls(rec, rows):
+        args = (rows, *rec["tables"], rec["cstore"])
+        kw = dict(kw=rec["kw"], num_queries=rec["num_queries"],
+                  kk=min(rec["k"], 128))
+        return (lambda: bool_probe(*args, **kw),
+                lambda: bool_probe_ref(*args, **kw))
+
+    chosen = {}
+    for rec in log:
+        if rec["kind"] == "probe":
+            chosen.setdefault((rec["phase"], rec["n_clauses"], rec["kw"]),
+                              rec)
+    for need in ((1, 2), (2, 2), (1, 4), (2, 4)):
+        if not any(key[:2] == need for key in chosen):
+            raise AssertionError(f"probe path made no windowed launch with "
+                                 f"(phase, T) = {need}")
+    max_err = 0.0
+    for (phase, t, kw), rec in sorted(chosen.items()):
+        name = f"bool_probe p{phase} T{t} kw{kw}"
+        err, n_rep = _compare(name, *calls(rec, rec["rows"]))
+        max_err = max(max_err, err)
+        print(f"kernel==twin {name}: W={rec['rows'].shape[0]} "
+              f"reported={n_rep} bitwise equal")
+    times = []
+    for W, kw, t in SYNTH_PROBE:
+        # the largest real chunk of this rung and clause bucket, its real
+        # items repeated to fill W
+        rec = max((r for r in log if r["kind"] == "probe" and r["kw"] == kw
+                   and r["n_clauses"] == t),
+                  key=lambda r: r["rows"].shape[0], default=None)
+        if rec is None:
+            raise AssertionError(f"probe path made no launch with kw={kw}, "
+                                 f"T={t}")
+        live = rec["rows"][rec["rows"][:, 1] < rec["num_queries"]]
+        rows = live.repeat(-(-W // live.shape[0]), 1)[:W].contiguous()
+        kern, twin = calls(rec, rows)
+        err, n_rep = _compare(f"bool_probe synthetic kw{kw}", kern, twin)
+        max_err = max(max_err, err)
+        ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(twin, 3)
+        times.append((ms, plain_ms))
+        print(f"kernel==twin bool_probe synthetic: W={W} kw={kw} T={t} "
+              f"kk={min(rec['k'], 128)} reported={n_rep} bitwise equal; "
+              f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    return {"max_abs_err": max_err, "ms": times[0][0],
+            "plain_ms": times[0][1]}
+
+
 def profile_layers(executor, stream, seed: int, path: str) -> None:
-    """Per-layer breakdown of one fresh batch per suite: an untraced batch,
-    then another with the engine's host spans (`tantivy_tpu.utils.trace`)
-    and `torch.profiler` on. Device time is the sum of the CUDA kernels' and
+    """Per-layer breakdown of one fresh batch per suite of both paths (the
+    probe path's suites are named `probe_*`): an untraced batch, then
+    another with the engine's host spans (`tantivy_tpu.utils.trace`) and
+    `torch.profiler` on. Device time is the sum of the CUDA kernels' and
     copies' own time (overlap between streams would count twice); idle
     share is one minus device time over the traced wall time. Writes the
     breakdown as JSON to `path`."""
@@ -436,10 +550,14 @@ def profile_layers(executor, stream, seed: int, path: str) -> None:
 
     out = {}
     logs = query_logs(stream, seed + 100, 2 * BATCH)
-    for suite, qlog in logs.items():
+    runs = [(suite, executor.search_batch, qlog)
+            for suite, qlog in logs.items()]
+    runs += [(f"probe_{suite}", executor.search_boolean_batch, qlog)
+             for suite, qlog in probe_logs(logs).items()]
+    for suite, search, qlog in runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        executor.search_batch(qlog[:BATCH], K)
+        search(qlog[:BATCH], K)
         torch.cuda.synchronize()
         untraced = time.perf_counter() - t0
         tracer.clear()
@@ -448,7 +566,7 @@ def profile_layers(executor, stream, seed: int, path: str) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            executor.search_batch(qlog[BATCH:], K)
+            search(qlog[BATCH:], K)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         tracer.disable()
@@ -500,7 +618,17 @@ def main(argv=None) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from tantivy_tpu_torch import BatchExecutor
-    from tantivy_tpu_torch.ops import _build, group_probe, phrase_probe
+    from tantivy_tpu_torch.ops import (
+        _build,
+        bool_probe,
+        group_probe,
+        phrase_probe,
+    )
+
+    def zero_counts():
+        group_probe.launches = 0
+        phrase_probe.launches = 0
+        bool_probe.launches = 0
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -508,13 +636,14 @@ def main(argv=None) -> int:
     print(f"gpu: {gpu}")
 
     # one nvcc per kernel source, all started together
+    kernels = _build.KERNELS
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for fut in [pool.submit(_build.load, name) for name in KERNELS]:
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for fut in [pool.submit(_build.load, name) for name in kernels]:
             fut.result()
-    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s "
+    print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc " + ", ".join(
-              f"{name} {_build.build_seconds[name]:.1f} s" for name in KERNELS
+              f"{name} {_build.build_seconds[name]:.1f} s" for name in kernels
           ) + ")")
 
     print(f"index codec: {zstd_codec()}")
@@ -529,14 +658,13 @@ def main(argv=None) -> int:
 
     executor = BatchExecutor(searcher, device="cuda")
     executor.launch_log = []
-    group_probe.launches = 0
-    phrase_probe.launches = 0
+    zero_counts()
     timing, answered = run_main_path(
         executor, logs, long_phrases(stream, args.seed), n_seg
     )
     launches = {"group_probe": group_probe.launches,
                 "phrase_probe": phrase_probe.launches}
-    executor.launch_log, log = None, executor.launch_log
+    executor.launch_log, log = [], executor.launch_log
     fused = executor._fused()
     print(f"fused store: cstore {tuple(fused.cstore.shape)} and postore "
           f"{tuple(fused.postore.shape)} int32 on {fused.cstore.device} "
@@ -558,14 +686,38 @@ def main(argv=None) -> int:
             f"{executor.host_routed} queries were routed to the host engine"
         )
 
-    check_exact(searcher, answered, args.seed)
+    # the probe path, with its own counts and peak memory
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stats0 = dict(executor.plan_stats)
+    probe_timing, probe_answered = run_probe_path(executor, logs, n_seg)
+    launches["bool_probe"] = bool_probe.launches
+    probe_rungs = {kw: executor.plan_stats.get(f"probe_kw{kw}", 0)
+                   - stats0.get(f"probe_kw{kw}", 0) for kw in PROBE_RUNGS}
+    executor.launch_log, probe_log = None, executor.launch_log
+    for suite, tm in probe_timing.items():
+        print(f"probe suite {suite}: {tm['qps']:.1f} QPS, p50 "
+              f"{tm['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} ({gpu}); "
+              f"bool_probe launches by kw {tm['k3_by_kw']}, deep-path "
+              f"launches {tm['deep']}; {tm['host_plans']} of {tm['plans']} "
+              f"(query, segment) plans ran on the host engine")
+    print(f"launches on the probe path: bool_probe {launches['bool_probe']} "
+          f"(by kw {probe_rungs}), group_probe {group_probe.launches}, "
+          f"phrase_probe {phrase_probe.launches}; peak device memory of the "
+          f"probe path {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches["bool_probe"] == 0:
+        raise AssertionError("the probe path launched no bool_probe kernel")
+
+    check_exact(searcher, {**answered, **probe_answered}, args.seed)
     stats = {"group_probe": group_probe_vs_twin(log),
-             "phrase_probe": phrase_probe_vs_twin(log)}
+             "phrase_probe": phrase_probe_vs_twin(log),
+             "bool_probe": bool_probe_vs_twin(probe_log)}
     if args.profile:
         profile_layers(executor, stream, args.seed, args.profile)
 
     replaces = {"group_probe": "tantivy_tpu/ops/pallas_probe.py:533",
-                "phrase_probe": "tantivy_tpu/ops/pallas_phrase.py:98"}
+                "phrase_probe": "tantivy_tpu/ops/pallas_phrase.py:98",
+                "bool_probe": "tantivy_tpu/ops/pallas_probe.py:126"}
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": [{
         "name": name,
@@ -574,7 +726,7 @@ def main(argv=None) -> int:
         "replaces": replaces[name],
         "launches": launches[name],
         **stats[name],
-    } for name in KERNELS]}))
+    } for name in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

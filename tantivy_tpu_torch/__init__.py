@@ -4,9 +4,11 @@ and CUDA (NVIDIA Hopper).
 The host layers (schema, tokenizer, indexer, directory, termdict, postings,
 query, collector, searcher) are `tantivy_tpu`'s own and are re-exported
 here unchanged; an index built by either package is read by both. This
-package owns only the device path: `BatchExecutor` runs term and
-boolean(term) batches through a hand-written CUDA kernel
-(`csrc/group_probe.cu`) and a torch merge tail. It imports no jax.
+package owns only the device path: `BatchExecutor` runs term, boolean(term),
+phrase and phrase-prefix batches through hand-written CUDA kernels
+(`csrc/group_probe.cu`, `csrc/phrase_probe.cu`, and `csrc/bool_probe.cu`
+on the per-segment `search_boolean_batch` path) and torch merge tails. It
+imports no jax.
 """
 
 from tantivy_tpu import (  # noqa: F401

@@ -30,6 +30,9 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: the kernel sources, `csrc/<name>.cu`, one library each
+KERNELS = ("group_probe", "phrase_probe", "bool_probe")
+
 _lock = threading.Lock()
 #: one lock per kernel, so that different kernels build concurrently
 _name_locks: dict[str, threading.Lock] = {}
@@ -56,6 +59,8 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes library built from `csrc/<name>.cu`, compiling it first
     when no library for the current source and flags exists. Different
     kernels may be loaded from several threads at once; each builds once."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}; sources: {KERNELS}")
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:

@@ -5,7 +5,8 @@ The reference `tantivy_tpu/ops/fused_store.FusedStore` concatenates every
 tables; it imports no jax except when it uploads. This subclass keeps its
 slab registration, host tables, `region`/`region_keys` and `rmax` logic as
 they are and replaces only the uploads: `cstore` and the phrase position
-store `postore` become int32 tensors on the executor's device. It does not
+store `postore` become int32 tensors on the executor's device, and the
+per-block last docs get one device copy for the deep probe. It does not
 set the reference's `pack_addr_ok`: the port's merge tail has one form for
 every segment and doc count. int32 is lossless for `cstore` because every
 word is < 2^31 (TERMINATED = 2^31 - 1, and cachev bits are those of a
@@ -27,6 +28,7 @@ class FusedStore(_ref.FusedStore):
     def __init__(self, device="cpu"):
         super().__init__()
         self.device = torch.device(device)
+        self._blk_last_t = None
 
     @classmethod
     def from_jax(cls, jax_fused, device="cpu") -> "FusedStore":
@@ -96,7 +98,17 @@ class FusedStore(_ref.FusedStore):
 
         self._rmax = RangeMax(self.bfac)
         self._rkeys = None
+        self._blk_last_t = None
         self._dirty = False
+
+    def blk_last_device(self) -> torch.Tensor:
+        """`blk_last_doc` as an int32 tensor on the store's device (every
+        entry is <= TERMINATED), copied once per store build: the deep
+        probe's block searches read it."""
+        self.ready()
+        if self._blk_last_t is None:
+            self._blk_last_t = _to_device(self.blk_last_doc, self.device)
+        return self._blk_last_t
 
     def ensure_positions(self):
         """Build the fused position store and the per-block position

@@ -1,9 +1,13 @@
-"""Planner constants and the cross-segment merge tail, in torch.
+"""Planner constants, the merge tails, the deep per-lane probe scorer and
+the per-segment probe dispatch, in torch.
 
 Counterpart of `tantivy_tpu/ops/probe_scorer.py` (which imports jax at the
-top, so the constants are copied here). The merge tail was XLA in the
-reference, not Pallas, so it is plain torch ops: torch has no multi-key
-sort, so keys are packed into int64 and combined by chained stable sorts.
+top, so the constants are copied here). The merge tails and the deep probe
+scorer (`probe_bool_topk`) were XLA in the reference, not Pallas, so they
+are plain torch ops: torch has no multi-key sort, so keys are packed into
+int64 and combined by chained stable sorts. `dispatch_probe` sends the
+per-segment Block-WAND path's windowed work to kernel K3
+(`ops/bool_probe.py`) and its wide work to `probe_bool_topk`.
 """
 
 from __future__ import annotations
@@ -25,6 +29,14 @@ KIND_ABSENT = 3
 
 _T_LADDER = (2, 4, 8, T_MAX)
 
+#: (work-list chunk size, probe window rows) rungs of the windowed kernel
+_WKW_LADDER = ((65536, 2), (65536, 8), (8192, 64))
+#: work-list ladder of the deep per-lane probe (windows wider than 64
+#: rows); the port launches only real items, so only its top sizes chunks
+_W_LADDER = (256, 4096)
+#: block-index search depth buckets (covers <= 2^(n_iters-1) blocks/term)
+_ITER_LADDER = (9, 15, 21)
+
 _U32 = 0xFFFFFFFF
 
 
@@ -33,6 +45,13 @@ def t_bucket(n: int) -> int:
         if n <= t:
             return t
     raise ValueError(f"too many clauses for device path: {n}")
+
+
+def _iter_bucket(max_region_len: int) -> int:
+    for it in _ITER_LADDER:
+        if max_region_len <= (1 << (it - 1)):
+            return it
+    raise AssertionError(f"posting region too long: {max_region_len}")
 
 
 def check_tensor(name, x, dtype, ndim, device):
@@ -78,6 +97,47 @@ def _lexsort2(major, minor):
     return p[torch.sort(major[p], stable=True).indices]
 
 
+def _take_k(sq, cols, k: int, num_queries: int):
+    """First k entries of each query's run in the qid-sorted `sq`; (-inf,
+    0, ...) past a run's end. `cols` = (scores, then int64 columns)."""
+    dev = sq.device
+    bounds = torch.searchsorted(sq, torch.arange(num_queries + 1, device=dev))
+    firsts, nexts = bounds[:-1], bounds[1:]
+    idx = firsts[:, None] + torch.arange(k, device=dev)[None, :]
+    ok = idx < nexts[:, None]
+    idx = idx.clamp(max=max(sq.shape[0] - 1, 0))
+    out = [torch.where(ok, cols[0][idx], float("-inf"))]
+    out += [torch.where(ok, c[idx], 0).int() for c in cols[1:]]
+    return out
+
+
+def pack_results(scores, docs):
+    """[2, Q, k] i32 (score bits | doc): one device-to-host copy."""
+    return torch.stack([scores.view(torch.int32), docs])
+
+
+def unpack_results(packed_np):
+    """Inverse of `pack_results` on the host copy: (scores f32, docs u32)."""
+    return packed_np[0].view(np.float32), packed_np[1].view(np.uint32)
+
+
+def per_query_topk_from_rows(row_sc, row_doc, qid, k: int, num_queries: int):
+    """[W, kk] per-row candidates of one segment -> per-query top-k (scores
+    [Q, k] f32, docs [Q, k] i32), ordered (qid asc, score desc, doc asc):
+    TopNComputer's tie-break. As in the reference, there is no dedup: the
+    primary-lane rule reports each doc of a query once per segment."""
+    kk = row_sc.shape[1]
+    flat_scores = row_sc.reshape(-1)
+    flat_docs = row_doc.reshape(-1).long()
+    flat_qid = torch.where(
+        flat_scores == float("-inf"), num_queries,
+        qid.long().repeat_interleave(kk),
+    )
+    p = _lexsort2((flat_qid << 32) | _sortable_desc(flat_scores), flat_docs)
+    return _take_k(flat_qid[p], (flat_scores[p], flat_docs[p]), k,
+                   num_queries)
+
+
 def per_query_topk_rows_seg(row_sc, row_doc, row_seg, qid, k: int,
                             num_queries: int):
     """[W, kk] per-group candidates -> per-query top-k (scores [Q, k] f32,
@@ -86,8 +146,7 @@ def per_query_topk_rows_seg(row_sc, row_doc, row_seg, qid, k: int,
     max score before the top-k cut. This is the reference's 5-array form;
     its packed-address form gives the same result and saves a sort only in
     XLA's multi-key sort, so it is not ported."""
-    w, kk = row_sc.shape
-    dev = row_sc.device
+    kk = row_sc.shape[1]
     flat_scores = row_sc.reshape(-1)
     flat_docs = row_doc.reshape(-1).long()
     flat_seg = row_seg.long().repeat_interleave(kk)
@@ -106,18 +165,7 @@ def per_query_topk_rows_seg(row_sc, row_doc, row_seg, qid, k: int,
     )
     q1 = torch.where(dup, num_queries, q1)
     p = _lexsort2((q1 << 32) | k1, (sg1 << 32) | d1)
-    sq, sseg, sdoc, ssc = q1[p], sg1[p], d1[p], sc1[p]
-    qs = torch.arange(num_queries + 1, device=dev)
-    bounds = torch.searchsorted(sq, qs)
-    firsts, nexts = bounds[:-1], bounds[1:]
-    n = w * kk
-    idx = firsts[:, None] + torch.arange(k, device=dev)[None, :]
-    ok = idx < nexts[:, None]
-    idx = idx.clamp(max=n - 1)
-    out_sc = torch.where(ok, ssc[idx], float("-inf"))
-    out_doc = torch.where(ok, sdoc[idx], 0).int()
-    out_seg = torch.where(ok, sseg[idx], 0).int()
-    return out_sc, out_doc, out_seg
+    return _take_k(q1[p], (sc1[p], d1[p], sg1[p]), k, num_queries)
 
 
 def pack_results_seg(scores, docs, segs):
@@ -130,3 +178,214 @@ def unpack_results_seg(packed_np):
     u32, segs i32)."""
     return (packed_np[0].view(np.float32), packed_np[1].view(np.uint32),
             packed_np[2])
+
+
+def binsearch_flat(flat, target, lo0, hi0, iters: int):
+    """Vectorised lower-bound binary search of `target` [L] in the sorted
+    slices flat[lo0[i]:hi0[i]], `iters` fixed steps (the reference's
+    fori_loop). Returns the insertion index [L]."""
+    nflat = flat.shape[0]
+    lo, hi = lo0, hi0
+    for _ in range(iters):
+        mid = lo + ((hi - lo) >> 1)
+        go = flat[mid.clamp(max=nflat - 1)] < target
+        lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
+    return lo
+
+
+def probe_term(cstore, blk_last, fdoc, blk_start, n_blk, blk_iters: int):
+    """(presence, tf) of doc `fdoc` [L] in the term region [blk_start,
+    blk_start + n_blk) of the cstore: a binary search over the per-block
+    last docs finds the one candidate block, then a rank over its 128 docs
+    finishes (the reference's `probe_term`)."""
+    nb = blk_last.shape[0]
+    blk = binsearch_flat(blk_last, fdoc, blk_start, blk_start + n_blk,
+                         blk_iters)
+    in_region = blk < blk_start + n_blk
+    blk_safe = blk.clamp(max=nb - 1)
+    drow = cstore[blk_safe, :128]                             # [L, 128]
+    p_safe = (drow < fdoc[:, None]).sum(dim=1).clamp(max=127)
+    found = in_region & (drow.gather(1, p_safe[:, None])[:, 0] == fdoc)
+    return found, cstore[blk_safe, 128 + p_safe]
+
+
+def lane_scores(probe, lcl, tfs, cachev, lane_ok, weight, kind, shipped,
+                req_must, req_should):
+    """Per-lane BM25 sum and reporting rule of the probe scorers (K3's twin
+    and the deep probe): [n, 128] f32, -inf where a lane does not report.
+
+    `probe(t)` gives clause t's (found [n, 128] bool, tf [n, 128] i32) for
+    each lane's doc; the item's own clause `lcl` [n] is present with the
+    lane's own tf `tfs`. `cachev` [n, 128] is the BM25 denominator,
+    `lane_ok` [n, 128] marks live lanes of real items; weight/kind/shipped
+    [n, T] and req_must/req_should [n] are the items' query tables. Each
+    f32 operation is one correctly rounded torch op in clause order, as in
+    the CUDA kernels. A lane reports when its clause is <= the primary
+    (lowest present shipped) clause, the MUST and SHOULD counts are met and
+    no MUST_NOT clause is present."""
+    dev = cachev.device
+    score = torch.zeros_like(cachev)
+    cnt_must = torch.zeros(cachev.shape, dtype=torch.int32, device=dev)
+    cnt_should = torch.zeros_like(cnt_must)
+    has_not = torch.zeros(cachev.shape, dtype=torch.bool, device=dev)
+    primary = torch.full_like(cnt_must, T_MAX + 1)
+    for t in range(weight.shape[1]):
+        found, tf_probe = probe(t)
+        own = (lcl == t)[:, None]
+        present = found | own
+        tf = torch.where(own, tfs, tf_probe).float()
+        kd = kind[:, t, None]
+        contrib = weight[:, t, None] * (tf / (tf + cachev))
+        positive = present & ((kd == KIND_MUST) | (kd == KIND_SHOULD))
+        score = score + torch.where(positive, contrib, 0.0)
+        cnt_must += (present & (kd == KIND_MUST)).int()
+        cnt_should += (present & (kd == KIND_SHOULD)).int()
+        has_not |= present & (kd == KIND_MUST_NOT)
+        is_prim = present & (shipped[:, t, None] > 0) & (primary > T_MAX)
+        primary = torch.where(is_prim, t, primary)
+    ok = (
+        lane_ok
+        & (lcl[:, None] <= primary)
+        & (cnt_must >= req_must[:, None])
+        & (cnt_should >= req_should[:, None])
+        & ~has_not
+    )
+    return torch.where(ok, score, float("-inf"))
+
+
+def probe_bool_topk(bids, qid, lcl, cstore, blk_last, cl_weight, cl_kind,
+                    cl_start, cl_len, cl_shipped, req_must, req_should, *,
+                    k: int, num_queries: int, n_iters: int):
+    """The deep per-lane probe scorer, for work items whose clause windows
+    are wider than the widest rung: every lane binary-searches each clause
+    region (`probe_term`). Plain torch: the reference's counterpart is XLA,
+    not a Pallas kernel.
+
+    bids/qid/lcl [W] i64: the items' cstore rows, queries (num_queries =
+    padding) and own clauses; `cstore` [NB, 384] i32 gives each lane's doc,
+    tf and BM25 denominator (NaN = dead or pad), which replace the
+    reference's gathered blocks, `cache[norm_ids]` and `alive`; `blk_last`
+    [NB] i32 is the store's per-block last doc; the tables are those of
+    `bool_probe`, with regions in cstore rows. Returns packed [2, Q, k] i32
+    (score bits | doc)."""
+    w = bids.shape[0]
+    lane_rows = cstore[bids]                                  # [W, 384]
+    docs = lane_rows[:, :128]
+    cachev = lane_rows[:, 256:].view(torch.float32)
+    qc = qid.clamp(max=cl_weight.shape[0] - 1)
+    lane_ok = ((docs != TERMINATED) & ~torch.isnan(cachev)
+               & (qid < num_queries)[:, None])
+    fdoc = docs.reshape(-1)
+    start = cl_start[qc].long().repeat_interleave(128, dim=0)  # [W*128, T]
+    n_blk = cl_len[qc].long().repeat_interleave(128, dim=0)
+
+    def probe(t):
+        found, tf = probe_term(cstore, blk_last, fdoc, start[:, t],
+                               n_blk[:, t], n_iters)
+        return found.view(w, 128), tf.view(w, 128)
+
+    scores = lane_scores(
+        probe, lcl, lane_rows[:, 128:256], cachev, lane_ok, cl_weight[qc],
+        cl_kind[qc], cl_shipped[qc], req_must[qc], req_should[qc],
+    )
+    th = torch.full((w,), float("-inf"), device=cstore.device)
+    row_sc, row_doc = group_topk(scores, docs, th, min(k, 128))
+    return pack_results(
+        *per_query_topk_from_rows(row_sc, row_doc, qid, k, num_queries)
+    )
+
+
+def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
+                   k: int, num_queries: int, work_width, log=None,
+                   count=None) -> list:
+    """Launch one (segment, field) group's work list: items bucketed by
+    probe-window width (`work_width`, rows from the 8-aligned window start),
+    then chunked by rung. Windowed rungs (kw 2, 8, 64) run kernel K3
+    (`bool_probe.bool_probe_topk`); wider items run the deep per-lane
+    `probe_bool_topk`. The reference pads each chunk to its W rung with
+    items of qid = num_queries, which never report; the port launches only
+    the real items.
+
+    Planning works in the slab's own block ids (the reference's per-field
+    store); the slab's `offset` moves block ids, clause regions and window
+    starts into the fused store's rows, so the kernels read the same rows
+    the reference's per-field store holds. `tables` = cl_* [Q+1, T] and
+    req_must/req_should [Q+1] numpy arrays. When `log` is a list, each K3
+    chunk's exact inputs are appended to it (kind="probe"); `count(kind)`
+    is called once per launch ("probe_kw2", ..., "probe_deep"). Returns
+    packed [2, Q, k] tensors on the store's device."""
+    from .bool_probe import (
+        _kw8,
+        bool_probe_topk,
+        bool_scal_stride,
+        compute_jlo,
+    )
+
+    dfp, off = slab["dfp"], slab["offset"]
+    dev = fused.cstore.device
+    T = tables["cl_weight"].shape[1]
+    n_iters = _iter_bucket(int(tables["cl_len"].max(initial=1)))
+    targs = tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (
+            tables["cl_weight"].astype(np.float32),
+            tables["cl_kind"].astype(np.int32),
+            (tables["cl_start"].astype(np.int64) + off).astype(np.int32),
+            tables["cl_len"].astype(np.int32),
+            tables["cl_shipped"].astype(np.int32),
+            tables["req_must"].astype(np.int32),
+            tables["req_should"].astype(np.int32),
+        )
+    )
+    outs = []
+
+    def launch(sel, wkw):
+        blocks, qids, cls = work_blocks[sel], work_qid[sel], work_clause[sel]
+        top = wkw[0] if wkw is not None else _W_LADDER[-1]
+        for lo in range(0, len(blocks), top):
+            b, q, c = blocks[lo:lo + top], qids[lo:lo + top], cls[lo:lo + top]
+            if wkw is None:
+                outs.append(probe_bool_topk(
+                    *(torch.from_numpy(a.astype(np.int64)).to(dev)
+                      for a in (b + off, q, c)),
+                    fused.cstore, fused.blk_last_device(), *targs, k=k,
+                    num_queries=num_queries, n_iters=n_iters,
+                ))
+                kind = "probe_deep"
+            else:
+                kw = wkw[1]
+                rows = np.empty((len(b), bool_scal_stride(T)), np.int32)
+                rows[:, 0] = b + off
+                rows[:, 1] = q
+                rows[:, 2] = c
+                rows[:, 3:3 + T] = compute_jlo(
+                    dfp, b, q, tables["cl_start"], tables["cl_len"], kw
+                ) + off
+                # the reference's legacy windowed path has no per-clause
+                # widths: the wide rung probes its full window
+                rows[:, 3 + T:] = _kw8(kw)
+                rows_t = torch.from_numpy(rows).to(dev)
+                if log is not None:
+                    log.append(dict(
+                        kind="probe", rows=rows_t, tables=targs,
+                        cstore=fused.cstore, kw=kw, k=k,
+                        num_queries=num_queries, n_clauses=T,
+                    ))
+                outs.append(bool_probe_topk(
+                    rows_t, targs, fused.cstore, k=k,
+                    num_queries=num_queries, kw=kw,
+                ))
+                kind = f"probe_kw{kw}"
+            if count is not None:
+                count(kind)
+
+    prev_kw = -1  # width 0 (no partner clauses) lands in the first rung
+    for wkw in _WKW_LADDER:
+        sel = (work_width > prev_kw) & (work_width <= wkw[1])
+        if sel.any():
+            launch(sel, wkw)
+        prev_kw = wkw[1]
+    sel = work_width > _WKW_LADDER[-1][1]
+    if sel.any():
+        launch(sel, None)
+    return outs

@@ -12,6 +12,11 @@ the port's modules. Two chains run on the device:
 * every slop-0 phrase and multi-term phrase-prefix: `_search_phrase_fused`
   -> `fused_phrase.launch_fused_phrase` -> `fused_phrase_topk` -> the
   position-probe kernel and the merge tail.
+A third chain is the reference's per-segment Block-WAND boolean path,
+reached only through `search_boolean_batch`: per (segment, field, clause
+bucket) work lists -> `probe_scorer.dispatch_probe` -> the windowed-probe
+kernel (`bool_probe.bool_probe_topk`) or the deep per-lane probe, each
+with a per-segment merge tail. It reads the same fused store.
 Single-term phrase-prefixes expand into term sub-queries on the first
 chain. Sloppy phrases, phrases on fields without positions, phrases longer
 than `PHRASE_T_MAX` and every other query type run on the host engine, as
@@ -79,6 +84,7 @@ class BatchExecutor:
             self._device_for(r) for r in searcher.segment_readers()
         ]
         self._field_stats: dict[str, object] = {}
+        self._field_wand_cache: dict[tuple[int, str], object] = {}
         self._term_weight_cache: dict[tuple[str, bytes], tuple] = {}
         self._term_ord_cache: dict[tuple[int, str, bytes], int] = {}
         # serializes fused-store slab building: slab offsets are assigned
@@ -106,14 +112,19 @@ class BatchExecutor:
             reader._torch_device = DeviceSegment(reader)
         return reader._torch_device
 
+    def _field_statistics(self, field: str):
+        fs = self._field_stats.get(field)
+        if fs is None:
+            fs = self._field_stats[field] = self.searcher.field_statistics(
+                field
+            )
+        return fs
+
     def _term_weight(self, term) -> tuple:
         key = (term.field, term.value_bytes)
         cached = self._term_weight_cache.get(key)
         if cached is None:
-            fs = self._field_stats.get(term.field)
-            if fs is None:
-                fs = self.searcher.field_statistics(term.field)
-                self._field_stats[term.field] = fs
+            fs = self._field_statistics(term.field)
             df = self.searcher.doc_freq(term)
             bm25 = Bm25Weight.for_one_term(
                 max(df, 1), fs.total_num_docs, fs.average_fieldnorm
@@ -182,10 +193,7 @@ class BatchExecutor:
         with self._fused_lock:
             if (seg_ord, field) in fused.slabs:
                 return
-            fs = self._field_stats.get(field)
-            if fs is None:
-                fs = self.searcher.field_statistics(field)
-                self._field_stats[field] = fs
+            fs = self._field_statistics(field)
             dseg = self._device_segments[seg_ord]
             fused.ensure_slab(
                 seg_ord, field, dseg.field_postings(field), dseg.alive_np,
@@ -797,6 +805,315 @@ class BatchExecutor:
         return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
 
     # ------------------------------------------------------------------
+    # per-segment boolean batches (Block-WAND over each segment's store)
+
+    def _field_wand(self, seg_ord: int, field: str):
+        """Block-max planning state of one (segment, field), cached."""
+        from tantivy_tpu.parallel.wand import FieldWand
+
+        fw = self._field_wand_cache.get((seg_ord, field))
+        if fw is None:
+            dfp = self._device_segments[seg_ord].field_postings(field)
+            avg = self._field_statistics(field).average_fieldnorm
+            fw = FieldWand(dfp, avg)
+            self._field_wand_cache[(seg_ord, field)] = fw
+        return fw
+
+    def search_boolean_batch(self, queries: list, k: int):
+        """Batched boolean(term-clause) queries on the device through the
+        per-segment probe path with two-phase Block-WAND pruning (the
+        reference's non-fused `search_boolean_batch`).
+
+        Phase 1 ships each (query, segment)'s best-UB candidate blocks to
+        establish a per-query threshold; phase 2 ships only the remaining
+        blocks whose upper bound beats it (see `parallel/wand.py` for the
+        bound). Every shipped lane carries its doc's FULL score (probes),
+        so chunking and pruning never split correctness across launches.
+        Work runs per (segment, field, clause bucket) through
+        `probe_scorer.dispatch_probe`: kernel K3 for windowed items, the
+        deep per-lane probe for wider ones. The planner is single-field, as
+        the reference's: queries whose clauses span fields run the fused
+        chain (`_search_boolean_fused`) inside the same call. Every query
+        must be a device-eligible boolean (term or boosted-term clauses).
+        Returns list[list[(score, DocAddress)]]."""
+        from tantivy_tpu.query import Occur
+
+        from ..ops import probe_scorer as ps
+
+        Q = len(queries)
+        if Q == 0:
+            return []
+        for q in queries:
+            if not self._bool_device_eligible(q):
+                raise ValueError(
+                    f"not a device-eligible boolean(term) query: {q!r}"
+                )
+        fields_of = [
+            {self._term_clause(sub)[0].term.field for _, sub in q.clauses}
+            for q in queries
+        ]
+        multi = [i for i, f in enumerate(fields_of) if len(f) > 1]
+        if multi:
+            out = [None] * Q
+            for i, hits in zip(multi, self._search_boolean_fused(
+                    [queries[i] for i in multi], k)):
+                out[i] = hits
+            single = [i for i in range(Q) if out[i] is None]
+            for i, hits in zip(single, self.search_boolean_batch(
+                    [queries[i] for i in single], k)):
+                out[i] = hits
+            return out
+
+        kind_of = {
+            Occur.MUST: ps.KIND_MUST,
+            Occur.SHOULD: ps.KIND_SHOULD,
+            Occur.MUST_NOT: ps.KIND_MUST_NOT,
+        }
+        req_must = np.zeros(Q + 1, dtype=np.int32)
+        req_should = np.zeros(Q + 1, dtype=np.int32)
+        req_must[Q] = 1 << 30
+        qclauses = []  # per query: list[(kind, term, weight)]
+        field_of_q: list[str] = []
+        for qi, q in enumerate(queries):
+            n_must = sum(1 for occ, _ in q.clauses if occ == Occur.MUST)
+            n_should = sum(1 for occ, _ in q.clauses if occ == Occur.SHOULD)
+            req_must[qi] = n_must
+            ms = q.minimum_number_should_match
+            if n_must == 0:
+                ms = max(ms, 1)
+            req_should[qi] = min(ms, n_should) if n_should else 0
+            if n_should and q.minimum_number_should_match > n_should:
+                req_should[qi] = 1 << 30  # unsatisfiable
+            info = []
+            for occ, sub in q.clauses:
+                tq, boost = self._term_clause(sub)
+                if occ == Occur.MUST_NOT:
+                    w = np.float32(0.0)
+                else:
+                    w = self._clause_weight(tq, boost)
+                info.append((kind_of[occ], tq.term, np.float32(w)))
+            qclauses.append(info)
+            field_of_q.append(info[0][1].field)
+
+        readers = self.searcher.segment_readers()
+        # the kernels read the fused store: one slab per (segment, field)
+        for seg_ord in range(len(readers)):
+            for f in set(field_of_q):
+                self._ensure_fused_slab(seg_ord, f)
+        fused = self._fused().ready()
+        M1 = _m1()  # phase-1 candidate blocks per query per segment
+
+        def dispatch(seg_ord, field, blocks, qids, cls, tables, widths):
+            with debug_time("bool.probe_dispatch", n=len(blocks)):
+                return ps.dispatch_probe(
+                    fused, fused.slabs[(seg_ord, field)], blocks, qids, cls,
+                    tables, k, Q, widths, log=self.launch_log,
+                    count=self._count_plan,
+                )
+
+        def tag_phase(n0, phase):
+            if self.launch_log is not None:
+                for rec in self.launch_log[n0:]:
+                    rec["phase"] = phase
+
+        # ---- per-segment planning + phase-1 dispatch --------------------
+        per_query: list[list] = [[] for _ in range(Q)]
+        pending1 = []
+        seg_groups = []  # per segment: {(field, Tb): group dict}
+        log0 = len(self.launch_log or ())
+        _dt1 = debug_time("bool.plan_dispatch1")
+        _dt1.__enter__()
+        for seg_ord, reader in enumerate(readers):
+            dseg = self._device_segments[seg_ord]
+            groups: dict[tuple[str, int], dict] = {}
+            for qi, info in enumerate(qclauses):
+                field = field_of_q[qi]
+                dfp = dseg.field_postings(field)
+                fw = self._field_wand(seg_ord, field)
+                T = len(info)
+                ords = [
+                    self._term_ord(seg_ord, reader, field, t.value_bytes)
+                    for _, t, _ in info
+                ]
+                # a missing MUST term => no hits in this segment
+                if any(
+                    kd == ps.KIND_MUST and o < 0
+                    for (kd, _, _), o in zip(info, ords)
+                ):
+                    continue
+                positive = [
+                    ci
+                    for ci, ((kd, _, _), o) in enumerate(zip(info, ords))
+                    if kd in (ps.KIND_MUST, ps.KIND_SHOULD) and o >= 0
+                ]
+                if not positive:
+                    continue
+                musts = [
+                    ci for ci in positive if info[ci][0] == ps.KIND_MUST
+                ]
+                nblk = {
+                    ci: int(dfp.term_num_blocks[ords[ci]]) for ci in positive
+                }
+                start = {
+                    ci: int(dfp.term_block_start[ords[ci]]) for ci in positive
+                }
+                if musts:
+                    leader = min(musts, key=lambda ci: nblk[ci])
+                    shipped = [leader]
+                else:
+                    shipped = positive
+
+                Tb = ps.t_bucket(T)
+                g = groups.get((field, Tb))
+                if g is None:
+                    g = groups[(field, Tb)] = {
+                        "tables": {
+                            "cl_weight": np.zeros((Q + 1, Tb), np.float32),
+                            "cl_kind": np.full((Q + 1, Tb), ps.KIND_ABSENT,
+                                               np.int32),
+                            "cl_start": np.zeros((Q + 1, Tb), np.int32),
+                            "cl_len": np.zeros((Q + 1, Tb), np.int32),
+                            "cl_shipped": np.zeros((Q + 1, Tb), bool),
+                            "req_must": req_must,
+                            "req_should": req_should,
+                        },
+                        "p1": [],    # (qi, clause, block_ids, widths)
+                        "rest": [],  # (qi, clause, block_ids, ub, widths)
+                    }
+                tb = g["tables"]
+                for ci, ((kd, term, w), o) in enumerate(zip(info, ords)):
+                    if o < 0:
+                        continue
+                    tb["cl_weight"][qi, ci] = (
+                        0.0 if kd == ps.KIND_MUST_NOT else w
+                    )
+                    tb["cl_kind"][qi, ci] = kd
+                    tb["cl_start"][qi, ci] = int(dfp.term_block_start[o])
+                    tb["cl_len"][qi, ci] = int(dfp.term_num_blocks[o])
+                    tb["cl_shipped"][qi, ci] = ci in shipped
+
+                # candidate blocks + upper bounds per shipped clause;
+                # MUST_NOT clauses join `others` with weight 0 so their
+                # probe windows get sized too
+                cand = []  # (clause, ids, ub, widths)
+                for ci in shipped:
+                    others = [
+                        (info[c2][0] == ps.KIND_MUST,
+                         info[c2][2] if c2 in positive else np.float32(0.0),
+                         int(dfp.term_block_start[ords[c2]]),
+                         int(dfp.term_num_blocks[ords[c2]]),
+                         c2)
+                        for c2 in range(T)
+                        if c2 != ci and ords[c2] >= 0
+                        and (c2 in positive
+                             or info[c2][0] == ps.KIND_MUST_NOT)
+                    ]
+                    ids, ub, widths = fw.clause_blocks_ub(
+                        start[ci], nblk[ci], info[ci][2], others,
+                        self_pos=ci,
+                    )
+                    widths = (
+                        widths.max(axis=1)
+                        if widths.shape[1]
+                        else np.zeros(len(ids), dtype=np.int64)
+                    )
+                    if len(ids):
+                        cand.append((ci, ids, ub, widths))
+                if not cand:
+                    continue
+                self._count_plan(
+                    "wand_candidates",
+                    sum(len(ids) for _, ids, _, _ in cand),
+                )
+                # phase-1 = the query's top-M1 blocks by UB across clauses
+                all_ub = np.concatenate([ub for _, _, ub, _ in cand])
+                if len(all_ub) <= M1:
+                    cut = NEG_INF
+                else:
+                    cut = np.partition(all_ub, len(all_ub) - M1)[
+                        len(all_ub) - M1
+                    ]
+                taken = 0
+                for ci, ids, ub, widths in cand:
+                    pick = ub >= cut
+                    # cap exact ties so phase 1 stays small
+                    extra = int(pick.sum()) - (M1 - taken)
+                    if extra > 0:
+                        sel = np.nonzero(pick)[0]
+                        pick[sel[len(sel) - extra:]] = False
+                    taken += int(pick.sum())
+                    if pick.any():
+                        g["p1"].append((qi, ci, ids[pick], widths[pick]))
+                    if (~pick).any():
+                        g["rest"].append(
+                            (qi, ci, ids[~pick], ub[~pick], widths[~pick])
+                        )
+
+            for (field, Tb), g in groups.items():
+                if not g["p1"]:
+                    continue
+                blocks = np.concatenate([ids for _, _, ids, _ in g["p1"]])
+                qids = np.concatenate(
+                    [np.full(len(ids), qi, np.int32)
+                     for qi, _, ids, _ in g["p1"]]
+                )
+                cls = np.concatenate(
+                    [np.full(len(ids), ci, np.int32)
+                     for _, ci, ids, _ in g["p1"]]
+                )
+                wds = np.concatenate([wd for _, _, _, wd in g["p1"]])
+                self._count_plan("wand_p1", len(blocks))
+                for out in dispatch(seg_ord, field, blocks, qids, cls,
+                                    g["tables"], wds):
+                    pending1.append((seg_ord, out))
+            seg_groups.append(groups)
+        _dt1.__exit__(None, None, None)
+        tag_phase(log0, 1)
+
+        # ---- (score, DocAddress) thresholds from phase 1 -----------------
+        with debug_time("bool.collect1", n=len(pending1)):
+            self._collect_flat(pending1, per_query)
+        th, th_seg, th_doc = _topk_thresholds(per_query, k)
+
+        # ---- phase 2: surviving blocks only (tie-aware) -------------------
+        pending2 = []
+        log0 = len(self.launch_log or ())
+        _dt2 = debug_time("bool.plan_dispatch2")
+        _dt2.__enter__()
+        for seg_ord, groups in enumerate(seg_groups):
+            dseg = self._device_segments[seg_ord]
+            for (field, Tb), g in groups.items():
+                if not g["rest"]:
+                    continue
+                dfp = dseg.field_postings(field)
+                blks, qids, cls, wds = [], [], [], []
+                for qi, ci, ids, ub, widths in g["rest"]:
+                    keep = _phase2_keep(
+                        ub, dfp.blk_base[ids], seg_ord,
+                        th[qi], th_seg[qi], th_doc[qi],
+                    )
+                    if not keep.any():
+                        continue
+                    blks.append(ids[keep])
+                    qids.append(np.full(int(keep.sum()), qi, np.int32))
+                    cls.append(np.full(int(keep.sum()), ci, np.int32))
+                    wds.append(widths[keep])
+                if not blks:
+                    continue
+                self._count_plan("wand_p2", sum(len(b) for b in blks))
+                for out in dispatch(seg_ord, field, np.concatenate(blks),
+                                    np.concatenate(qids),
+                                    np.concatenate(cls), g["tables"],
+                                    np.concatenate(wds)):
+                    pending2.append((seg_ord, out))
+        _dt2.__exit__(None, None, None)
+        tag_phase(log0, 2)
+        with debug_time("bool.collect2", n=len(pending2)):
+            self._collect_flat(pending2, per_query)
+
+        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
+
+    # ------------------------------------------------------------------
     # phrase batches
 
     def _positions_field(self, field: str) -> bool:
@@ -941,10 +1258,7 @@ class BatchExecutor:
             key = (field, tuple(term_bytes))
             w = wcache.get(key)
             if w is None:
-                fs = self._field_stats.get(field)
-                if fs is None:
-                    fs = self.searcher.field_statistics(field)
-                    self._field_stats[field] = fs
+                fs = self._field_statistics(field)
                 dfs = [
                     self.searcher.doc_freq(Term(field, tb))
                     for tb in term_bytes
@@ -1504,19 +1818,29 @@ class BatchExecutor:
         return results
 
     def _collect_flat(self, pending, per_query):
-        """Append device results (packed [3, Q, k] tensors) as per-query
-        hit CHUNKS (score/seg/doc arrays); `_chunk_hits` sorts, dedups and
-        truncates them at finalize time."""
-        from ..ops.probe_scorer import unpack_results_seg
+        """Append device results as per-query hit CHUNKS (score/seg/doc
+        arrays); `_chunk_hits` sorts, dedups and truncates them at finalize
+        time. Each result is a fused packed [3, Q, k] tensor (the segment
+        rides the payload) or a per-segment (seg_ord, packed [2, Q, k])
+        pair."""
+        from ..ops.probe_scorer import unpack_results, unpack_results_seg
 
-        for packed in pending:
-            vals, docs, segs = unpack_results_seg(packed.cpu().numpy())
+        for item in pending:
+            seg_ord, packed = item if isinstance(item, tuple) else (None, item)
+            packed = packed.cpu().numpy()
+            if seg_ord is None:
+                vals, docs, segs = unpack_results_seg(packed)
+            else:
+                vals, docs = unpack_results(packed)
             qs, js = np.nonzero(vals > NEG_INF)  # qs ascending (row-major)
             if not len(qs):
                 continue
             vsel = vals[qs, js].astype(np.float32, copy=False)
             dsel = docs[qs, js].astype(np.uint32, copy=False)
-            ssel = segs[qs, js].astype(np.int32, copy=False)
+            if seg_ord is None:
+                ssel = segs[qs, js].astype(np.int32, copy=False)
+            else:
+                ssel = np.full(len(qs), seg_ord, dtype=np.int32)
             uq = np.unique(qs)
             bounds = np.searchsorted(qs, uq)
             bounds = np.append(bounds, len(qs))

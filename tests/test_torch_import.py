@@ -1,7 +1,8 @@
 """The port imports torch and never jax: importing `tantivy_tpu_torch` and
 each of its modules, and running its phrase path on the CPU, must leave
 `jax`, and every `tantivy_tpu.ops` module other than the numpy
-`fused_store`, out of `sys.modules`.
+`fused_store`, out of `sys.modules`; so must running its per-segment
+boolean path.
 
 Runs in a fresh interpreter, because this test process has already
 imported jax (tests/conftest.py)."""
@@ -13,6 +14,7 @@ import sys
 MODULES = (
     "tantivy_tpu_torch",
     "tantivy_tpu_torch.ops._build",
+    "tantivy_tpu_torch.ops.bool_probe",
     "tantivy_tpu_torch.ops.device_index",
     "tantivy_tpu_torch.ops.fmath",
     "tantivy_tpu_torch.ops.fused_bool",
@@ -70,6 +72,36 @@ assert any(r["kind"] == "phrase" for r in ex.launch_log)
 assert ex.host_routed == 0 and phrase_probe.launches == 0
 """ + LOADED
 
+#: the per-segment Block-WAND path (K3's twin and the deep probe) on the CPU
+PROBE_RUN = """
+import sys
+import tantivy_tpu_torch as tt
+from tantivy_tpu_torch.ops import bool_probe
+
+b = tt.Schema.builder()
+b.add_text_field("body", tt.TEXT)
+index = tt.Index.create_in_ram(b.build())
+w = index.writer_for_tests()
+for i in range(9000):
+    w.add_document(tt.Document(body="a h" if i % 3 == 0 else
+                               ("a r" if i % 997 == 5 else "a")))
+w.commit()
+w.close()
+searcher = index.reader().searcher()
+
+def t(x):
+    return tt.TermQuery(tt.Term.from_field_text("body", x))
+
+queries = [tt.BooleanQuery.intersection([t("r"), t("a")]),
+           tt.BooleanQuery.union([t("h"), t("r")])]
+ex = tt.BatchExecutor(searcher, device="cpu")
+got = ex.search_boolean_batch(queries, 5)
+for q, hits in zip(queries, got):
+    assert hits == searcher.search(q, tt.TopDocs(5)), q
+assert ex.plan_stats.get("probe_deep", 0) > 0, ex.plan_stats
+assert bool_probe.launches == 0
+""" + LOADED
+
 
 def _run(program, *args):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,3 +120,7 @@ def test_port_imports_no_jax():
 
 def test_phrase_path_runs_without_jax():
     _run(PHRASE_RUN)
+
+
+def test_probe_path_runs_without_jax():
+    _run(PROBE_RUN)
