@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    card's name and power limit;
 2. build: compiles the group-probe, phrase-probe and windowed-probe kernels
    from `tantivy_tpu_torch/csrc` with nvcc into `build/kernels/`, all at
-   once;
+   once, and prints what ptxas reports for each (registers, shared memory,
+   spills);
 3. index: a Zipf corpus (one `body` TEXT field, windows of 20-100 tokens
    over a 30,000-word token stream built from the seed), committed in 4
    segments;
@@ -35,13 +36,20 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    rung seen) and synthetic chunks at the largest tiers (one per kernel,
    and a second windowed-probe chunk at W = 8,192, kw = 64, T = 4) run
    through the kernel and its plain PyTorch twin on the card; scores must
-   be bitwise equal and docs equal; prints both times;
-8. with `--profile PATH` only: one more fresh batch per timed suite of
+   be bitwise equal and docs equal; prints both times and the bound;
+8. per batch: the real chunks one timed batch of each suite of both paths
+   launched, replayed through their kernel, each chunk timed between CUDA
+   events; prints per kernel and suite the launches per timed batch, the
+   kernel ms summed over the chunks, the bytes they must move, the bound
+   (those bytes at the card's memory rate; the kernels do no tensor-core
+   work) and the share of the bound the kernel reaches;
+9. with `--profile PATH` only: one more fresh batch per timed suite of
    both paths with the engine's host spans and `torch.profiler` on; the
    per-layer breakdown (host span ms, device ms per kernel, idle share)
    goes to PATH as JSON.
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON record.
+the per-kernel JSON record. The script imports nothing of `tantivy_tpu` or
+jax: the port stands alone.
 """
 
 from __future__ import annotations
@@ -71,6 +79,12 @@ SYNTH_PROBE = ((65536, 2, 2), (8192, 64, 4))
 PROBE_SUITES = ("term", "and", "or", "multi")
 #: the windowed-probe kernel's rungs (window rows kw)
 PROBE_RUNGS = (2, 8, 64)
+#: device memory rate of one H100 SXM (NVIDIA's data sheet), bytes per second:
+#: the kernels do no tensor-core work, so bytes bound them
+HBM_BYTES_PER_S = 3.35e12
+#: why no library call stands beside the kernels
+NO_LIBRARY = ("no single PyTorch call computes a sorted-set probe, BM25 "
+              "scoring and a per-group top-kk over these stores")
 
 
 def gpu_line() -> str:
@@ -215,21 +229,42 @@ def bits(hits):
     return [(int(np.float32(s).view(np.int32)), a) for s, a in hits]
 
 
-def timed_batches(search, qlog):
+def timed_batches(search, qlog, log):
     """TIMED_BATCHES fresh batches of `qlog` after the first (the caller's
-    warm batch) through `search`: (QPS, p50 ms, (query, hits) pairs)."""
+    warm batch) through `search`: (QPS, p50 ms, (query, hits) pairs, the
+    launch records that the first timed batch appended to `log`)."""
     import torch
 
-    spans, pairs = [], []
+    spans, pairs, first = [], [], []
     for b in range(1, 1 + TIMED_BATCHES):
         batch = qlog[b * BATCH:(b + 1) * BATCH]
+        n0 = len(log)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = search(batch, K)
         torch.cuda.synchronize()
         spans.append(time.perf_counter() - t0)
         pairs.extend(zip(batch, res))
-    return len(pairs) / sum(spans), float(np.median(spans)) * 1e3, pairs
+        if b == 1:
+            first = log[n0:]
+    return (len(pairs) / sum(spans), float(np.median(spans)) * 1e3, pairs,
+            first)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by kernel name."""
+    from tantivy_tpu_torch.ops import bool_probe, group_probe, phrase_probe
+
+    return {"group_probe": group_probe.launches,
+            "phrase_probe": phrase_probe.launches,
+            "bool_probe": bool_probe.launches}
+
+
+def per_batch_launches(before: dict) -> dict:
+    """Launches per timed batch since `before` (a `launch_counts()`), for
+    the kernels that launched."""
+    return {name: (n - before[name]) / TIMED_BATCHES
+            for name, n in launch_counts().items() if n != before[name]}
 
 
 def run_main_path(executor, logs, long_batch, n_seg: int):
@@ -242,7 +277,10 @@ def run_main_path(executor, logs, long_batch, n_seg: int):
     for suite, qlog in logs.items():
         executor.search_batch(qlog[:BATCH], K)
         before = dict(executor.fallbacks)
-        qps, p50_ms, pairs = timed_batches(executor.search_batch, qlog)
+        counts0 = launch_counts()
+        qps, p50_ms, pairs, batch_log = timed_batches(
+            executor.search_batch, qlog, executor.launch_log
+        )
         by_reason = {
             why: n - before.get(why, 0)
             for why, n in executor.fallbacks.items()
@@ -254,6 +292,8 @@ def run_main_path(executor, logs, long_batch, n_seg: int):
             "host_plans": sum(by_reason.values()),
             "host_by_reason": by_reason,
             "plans": len(pairs) * n_seg,
+            "launches_per_batch": per_batch_launches(counts0),
+            "batch_log": batch_log,
         }
         answered[suite] = pairs
     answered["phrase34"] = list(
@@ -282,8 +322,10 @@ def run_probe_path(executor, logs, n_seg: int):
         executor.search_boolean_batch(qlog[:BATCH], K)
         fb0 = sum(executor.fallbacks.values())
         stats0 = dict(executor.plan_stats)
-        qps, p50_ms, pairs = timed_batches(executor.search_boolean_batch,
-                                           qlog)
+        counts0 = launch_counts()
+        qps, p50_ms, pairs, batch_log = timed_batches(
+            executor.search_boolean_batch, qlog, executor.launch_log
+        )
 
         def launched(kind):
             return (executor.plan_stats.get(kind, 0)
@@ -296,6 +338,8 @@ def run_probe_path(executor, logs, n_seg: int):
             "deep": launched("probe_deep"),
             "host_plans": sum(executor.fallbacks.values()) - fb0,
             "plans": len(pairs) * n_seg,
+            "launches_per_batch": per_batch_launches(counts0),
+            "batch_log": batch_log,
         }
         answered[f"probe_{suite}"] = pairs
     return timing, answered
@@ -397,15 +441,251 @@ def synthetic_rows(log, kind: str, width: int, slab_rows=None):
     return rec, live.repeat(reps, 1)[:width].contiguous()
 
 
-def group_probe_vs_twin(log) -> dict:
+def group_calls(rec, rows):
+    """(kernel, twin) no-argument calls of kernel K1 on one chunk."""
     from tantivy_tpu_torch.ops.group_probe import group_probe, group_probe_ref
 
-    def calls(rec, rows):
-        args = (rows, *rec["tables"], rec["cstore"])
-        kw = dict(num_prows=rec["num_prows"], kk=min(rec["k"], 128))
-        return (lambda: group_probe(*args, **kw),
-                lambda: group_probe_ref(*args, **kw))
+    args = (rows, *rec["tables"], rec["cstore"])
+    kw = dict(num_prows=rec["num_prows"], kk=min(rec["k"], 128))
+    return (lambda: group_probe(*args, **kw),
+            lambda: group_probe_ref(*args, **kw))
 
+
+def phrase_calls(rec, rr, rows):
+    """(kernel, twin) no-argument calls of kernel K2 on one chunk."""
+    from tantivy_tpu_torch.ops.phrase_probe import (
+        phrase_probe,
+        phrase_probe_ref,
+    )
+
+    args = (rows, rec["qw"], rec["row_th"], rec["cstore"], rec["postore"])
+    kw = dict(n_partners=rec["n_partners"], slab_rows=rr,
+              num_prows=rec["num_prows"], kk=min(rec["k"], 128))
+    return (lambda: phrase_probe(*args, **kw),
+            lambda: phrase_probe_ref(*args, **kw))
+
+
+def bool_calls(rec, rows):
+    """(kernel, twin) no-argument calls of kernel K3 on one chunk."""
+    from tantivy_tpu_torch.ops.bool_probe import bool_probe, bool_probe_ref
+
+    args = (rows, *rec["tables"], rec["cstore"])
+    kw = dict(kw=rec["kw"], num_queries=rec["num_queries"],
+              kk=min(rec["k"], 128))
+    return (lambda: bool_probe(*args, **kw),
+            lambda: bool_probe_ref(*args, **kw))
+
+
+# -- the least bytes each kernel must move ------------------------------
+#
+# Each counter takes one chunk as the launch log recorded it and counts
+# once each distinct input byte the chunk needs, and each output byte:
+# the scalar rows, the plan-row tables, the member cstore rows, the probed
+# cstore window rows (docs and tfs) or postore sub-ranges (position and
+# owner), and the [W, kk] scores and docs. The cstore and postore ranges
+# are those the kernel reads, computed from the chunk's real rows as the
+# kernel computes them.
+
+
+def _covered(n: int, lo, hi) -> np.ndarray:
+    """[n] bool: which indices the ranges [lo, hi) cover."""
+    lo = np.maximum(np.asarray(lo, dtype=np.int64), 0)
+    hi = np.minimum(np.asarray(hi, dtype=np.int64), n)
+    keep = hi > lo
+    lo, hi = lo[keep], hi[keep]
+    diff = (np.bincount(lo, minlength=n + 1)
+            - np.bincount(hi, minlength=n + 1))
+    return np.cumsum(diff[:n]) > 0
+
+
+def _union_len(lo, hi) -> int:
+    """How many integers the ranges [lo, hi) cover together."""
+    lo = np.asarray(lo, dtype=np.int64)
+    hi = np.asarray(hi, dtype=np.int64)
+    keep = hi > lo
+    if not keep.any():
+        return 0
+    order = np.argsort(lo[keep], kind="stable")
+    lo, hi = lo[keep][order], hi[keep][order]
+    reach = np.maximum.accumulate(hi)
+    # a range starts a new run of overlapping ranges when it begins past
+    # every earlier range's end
+    starts = np.nonzero(np.r_[True, lo[1:] > reach[:-1]])[0]
+    return int((np.maximum.reduceat(hi, starts) - lo[starts]).sum())
+
+
+def _np(t) -> np.ndarray:
+    return t.cpu().numpy().astype(np.int64)
+
+
+def _small_bytes(rows, tables, kk: int) -> int:
+    """Scalar rows, plan-row tables and the [W, kk] outputs."""
+    return (rows.numel() * 4 + sum(t.numel() * 4 for t in tables)
+            + rows.shape[0] * kk * 8)
+
+
+def group_probe_bytes(rec, rows) -> int:
+    """Kernel K1: member rows (docs, tfs, cachev: 1,536 bytes) and each
+    clause's probed member sub-windows (docs and tfs: 1,024 bytes a row)."""
+    r = _np(rows)
+    T, nb = rec["n_clauses"], rec["cstore"].shape[0]
+    prow, mask = r[:, 1], r[:, 3]
+    live = (mask != 0) & (prow >= 0) & (prow < rec["num_prows"])
+    m_lo, p_lo, p_hi = [], [], []
+    for m in range(8):
+        sel = live & (((mask >> m) & 1) == 1)
+        m_lo.append(r[sel, 0] + m)
+        for t in range(T):
+            jlo = r[sel, 4 + t]
+            packed = r[sel, 4 + T + 8 * t + m]
+            ln = packed & 255
+            ok = (ln > 0) & (jlo >= 0)
+            p_lo.append((jlo + (packed >> 8))[ok])
+            p_hi.append((jlo + (packed >> 8) + ln)[ok])
+    m_lo = np.concatenate(m_lo)
+    member = _covered(nb, m_lo, m_lo + 1)
+    probed = _covered(nb, np.concatenate(p_lo), np.concatenate(p_hi))
+    return (int(member.sum()) * 1536 + int((probed & ~member).sum()) * 1024
+            + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
+
+
+def phrase_probe_bytes(rec, rr: int, rows) -> int:
+    """Kernel K2: member rows (docs and cachev: 1,024 bytes) and every
+    position of the anchor and partner sub-ranges, cut to the slab window
+    as the kernel cuts them (position and owner: 8 bytes each)."""
+    r = _np(rows)
+    S, nb = rec["n_partners"], rec["cstore"].shape[0]
+    n_pos = rec["postore"].shape[0] * 128
+    A = 4 + 2 * S
+    prow, mask = r[:, 1], r[:, 2]
+    live = (mask != 0) & (prow >= 0) & (prow < rec["num_prows"])
+
+    def window(row0):
+        lim = np.clip((rec["postore"].shape[0] - row0) * 128, 0, rr * 128)
+        return row0 * 128, lim
+
+    m_lo, lo, hi = [], [], []
+    for m in range(8):
+        sel = live & (((mask >> m) & 1) == 1)
+        m_lo.append(r[sel, 0] + m)
+        ranges = [(r[sel, 3], r[sel, A + m], r[sel, A + 8 + m])]
+        ranges += [(r[sel, 4 + 2 * s], r[sel, A + 16 + 16 * s + m],
+                    r[sel, A + 24 + 16 * s + m]) for s in range(S)]
+        # partners are searched only for the member's anchor positions
+        has_anchor = ranges[0][2] > 0
+        for row0, off, ln in ranges:
+            base, lim = window(row0)
+            ok = (ln > 0) & has_anchor
+            lo.append((base + np.maximum(off, 0))[ok])
+            hi.append((base + np.minimum(off + ln, lim))[ok])
+    m_lo = np.concatenate(m_lo)
+    member = _covered(nb, m_lo, m_lo + 1)
+    lo = np.concatenate(lo)
+    n_pos_read = _union_len(lo, np.minimum(np.concatenate(hi), n_pos))
+    return (int(member.sum()) * 1024 + n_pos_read * 8
+            + _small_bytes(rows, (rec["qw"], rec["row_th"]),
+                           min(rec["k"], 128)))
+
+
+def bool_probe_bytes(rec, rows) -> int:
+    """Kernel K3: each item's own row (docs, tfs, cachev: 1,536 bytes) and
+    each clause's probed window rows inside its region (docs and tfs: 1,024
+    bytes a row), the rows the kernel's rungs probe."""
+    r = _np(rows)
+    T, kw = rec["n_clauses"], rec["kw"]
+    nb = rec["cstore"].shape[0]
+    cl_start, cl_len = _np(rec["tables"][2]), _np(rec["tables"][3])
+    bid, q = r[:, 0], r[:, 1]
+    live = (q >= 0) & (q < rec["num_queries"]) & (bid >= 0) & (bid < nb)
+    bid, q, r = bid[live], q[live], r[live]
+    kw8 = ((kw + 7) & ~7) + (8 if kw > 8 else 0)
+    p_lo, p_hi = [], []
+    for t in range(T):
+        s0 = cl_start[q, t]
+        e = s0 + cl_len[q, t]
+        j = r[:, 3 + t]
+        if kw <= 8:
+            r1 = j + max(kw, 2)
+        else:
+            used = np.clip(np.minimum(e - j, r[:, 3 + T + t]), 0, kw8)
+            r1 = j + ((used + 7) & ~7)
+        ok = j >= 0
+        p_lo.append(np.maximum(j, s0)[ok])
+        p_hi.append(np.minimum(r1, e)[ok])
+    member = _covered(nb, bid, bid + 1)
+    probed = _covered(nb, np.concatenate(p_lo), np.concatenate(p_hi))
+    return (int(member.sum()) * 1536 + int((probed & ~member).sum()) * 1024
+            + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
+
+
+def bound_ms(n_bytes: int) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def chunk_work(rec):
+    """(kernel name, kernel call, bytes) for each chunk of one launch
+    record."""
+    if rec["kind"] == "bool":
+        for rows, _, _ in rec["chunks"]:
+            yield ("group_probe", group_calls(rec, rows)[0],
+                   group_probe_bytes(rec, rows))
+    elif rec["kind"] == "phrase":
+        for rr, rows, _, _ in rec["chunks"]:
+            yield ("phrase_probe", phrase_calls(rec, rr, rows)[0],
+                   phrase_probe_bytes(rec, rr, rows))
+    else:
+        yield ("bool_probe", bool_calls(rec, rec["rows"])[0],
+               bool_probe_bytes(rec, rec["rows"]))
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """Median device time of one call of `fn`, between two CUDA events."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def batch_kernel_times(timings: dict) -> dict:
+    """Per kernel and suite: the real chunks of one timed batch replayed
+    through the kernel, each chunk timed between CUDA events; the kernel ms
+    summed over the batch's chunks, the bytes they must move, the bound
+    (those bytes at the card's memory rate) and the share of the bound the
+    kernel reaches, beside the launches per timed batch."""
+    out = {}
+    for suite, tm in timings.items():
+        per = {}
+        for rec in tm["batch_log"]:
+            for name, call, n_bytes in chunk_work(rec):
+                acc = per.setdefault(name, [0.0, 0, 0])
+                acc[0] += _event_ms(call)
+                acc[1] += n_bytes
+                acc[2] += 1
+        for name, (ms, n_bytes, chunks) in per.items():
+            b = bound_ms(n_bytes)
+            out.setdefault(name, {})[suite] = {
+                "launches_per_batch": tm["launches_per_batch"].get(name, 0),
+                "chunks": chunks, "ms": ms, "bytes": n_bytes,
+                "bound_ms": b, "share": b / ms if ms else 0.0,
+            }
+            print(f"per batch {name} {suite}: "
+                  f"{tm['launches_per_batch'].get(name, 0):.1f} launches per "
+                  f"timed batch, {chunks} chunks replayed: kernel {ms:.3f} ms,"
+                  f" {n_bytes} bytes, bound {b:.4f} ms, share of bound "
+                  f"{b / ms if ms else 0.0:.4f}")
+    return out
+
+
+def group_probe_vs_twin(log) -> dict:
     max_err = 0.0
     picks = pick_launches(
         log, "bool", lambda r: (r["n_clauses"], _phase2(r["tables"][5])),
@@ -414,36 +694,27 @@ def group_probe_vs_twin(log) -> dict:
     for (t, p2), rec in picks:
         name = f"group_probe T{t}_{'p2' if p2 else 'p1'}"
         for ci, (rows, _, _) in enumerate(rec["chunks"]):
-            err, n_rep = _compare(f"{name}[{ci}]", *calls(rec, rows))
+            err, n_rep = _compare(f"{name}[{ci}]", *group_calls(rec, rows))
             max_err = max(max_err, err)
             print(f"kernel==twin {name} chunk {ci}: W={rows.shape[0]} "
                   f"reported={n_rep} bitwise equal")
     rec, rows = synthetic_rows(log, "bool", SYNTH_W)
-    kern, twin = calls(rec, rows)
+    kern, twin = group_calls(rec, rows)
     err, n_rep = _compare("group_probe synthetic", kern, twin)
     max_err = max(max_err, err)
     ms = _time_ms(kern, 20)
     plain_ms = _time_ms(twin, 3)
+    bound = bound_ms(group_probe_bytes(rec, rows))
     print(f"kernel==twin group_probe synthetic: W={rows.shape[0]} "
           f"T={rec['n_clauses']} kk={min(rec['k'], 128)} reported={n_rep} "
-          f"bitwise equal; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+          f"bitwise equal; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound}
 
 
 def phrase_probe_vs_twin(log) -> dict:
     from tantivy_tpu_torch.ops.fused_phrase import _PHRASE_RUNGS
-    from tantivy_tpu_torch.ops.phrase_probe import (
-        phrase_probe,
-        phrase_probe_ref,
-    )
-
-    def calls(rec, rr, rows):
-        args = (rows, rec["qw"], rec["row_th"], rec["cstore"],
-                rec["postore"])
-        kw = dict(n_partners=rec["n_partners"], slab_rows=rr,
-                  num_prows=rec["num_prows"], kk=min(rec["k"], 128))
-        return (lambda: phrase_probe(*args, **kw),
-                lambda: phrase_probe_ref(*args, **kw))
 
     picks = pick_launches(
         log, "phrase", lambda r: (r["n_partners"], _phase2(r["row_th"])),
@@ -465,34 +736,28 @@ def phrase_probe_vs_twin(log) -> dict:
     for (S, p2), rec in picks:
         name = f"phrase_probe S{S}_{'p2' if p2 else 'p1'}"
         for ci, (rr, rows, _, _) in enumerate(rec["chunks"]):
-            err, n_rep = _compare(f"{name}[{ci}]", *calls(rec, rr, rows))
+            err, n_rep = _compare(f"{name}[{ci}]",
+                                  *phrase_calls(rec, rr, rows))
             max_err = max(max_err, err)
             print(f"kernel==twin {name} chunk {ci}: W={rows.shape[0]} "
                   f"slab rows={rr} reported={n_rep} bitwise equal")
     rr = _PHRASE_RUNGS[0][0]
     rec, rows = synthetic_rows(log, "phrase", SYNTH_W_PHRASE, rr)
-    kern, twin = calls(rec, rr, rows)
+    kern, twin = phrase_calls(rec, rr, rows)
     err, n_rep = _compare("phrase_probe synthetic", kern, twin)
     max_err = max(max_err, err)
     ms = _time_ms(kern, 20)
     plain_ms = _time_ms(twin, 3)
+    bound = bound_ms(phrase_probe_bytes(rec, rr, rows))
     print(f"kernel==twin phrase_probe synthetic: W={rows.shape[0]} "
           f"S={rec['n_partners']} slab rows={rr} kk={min(rec['k'], 128)} "
           f"reported={n_rep} bitwise equal; kernel {ms:.3f} ms, twin "
-          f"{plain_ms:.3f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound}
 
 
 def bool_probe_vs_twin(log) -> dict:
-    from tantivy_tpu_torch.ops.bool_probe import bool_probe, bool_probe_ref
-
-    def calls(rec, rows):
-        args = (rows, *rec["tables"], rec["cstore"])
-        kw = dict(kw=rec["kw"], num_queries=rec["num_queries"],
-                  kk=min(rec["k"], 128))
-        return (lambda: bool_probe(*args, **kw),
-                lambda: bool_probe_ref(*args, **kw))
-
     chosen = {}
     for rec in log:
         if rec["kind"] == "probe":
@@ -505,7 +770,7 @@ def bool_probe_vs_twin(log) -> dict:
     max_err = 0.0
     for (phase, t, kw), rec in sorted(chosen.items()):
         name = f"bool_probe p{phase} T{t} kw{kw}"
-        err, n_rep = _compare(name, *calls(rec, rec["rows"]))
+        err, n_rep = _compare(name, *bool_calls(rec, rec["rows"]))
         max_err = max(max_err, err)
         print(f"kernel==twin {name}: W={rec['rows'].shape[0]} "
               f"reported={n_rep} bitwise equal")
@@ -521,23 +786,25 @@ def bool_probe_vs_twin(log) -> dict:
                                  f"T={t}")
         live = rec["rows"][rec["rows"][:, 1] < rec["num_queries"]]
         rows = live.repeat(-(-W // live.shape[0]), 1)[:W].contiguous()
-        kern, twin = calls(rec, rows)
+        kern, twin = bool_calls(rec, rows)
         err, n_rep = _compare(f"bool_probe synthetic kw{kw}", kern, twin)
         max_err = max(max_err, err)
         ms = _time_ms(kern, 20)
         plain_ms = _time_ms(twin, 3)
-        times.append((ms, plain_ms))
+        bound = bound_ms(bool_probe_bytes(rec, rows))
+        times.append((ms, plain_ms, bound))
         print(f"kernel==twin bool_probe synthetic: W={W} kw={kw} T={t} "
               f"kk={min(rec['k'], 128)} reported={n_rep} bitwise equal; "
-              f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": times[0][0],
-            "plain_ms": times[0][1]}
+            "plain_ms": times[0][1], "bound_ms": times[0][2]}
 
 
 def profile_layers(executor, stream, seed: int, path: str) -> None:
     """Per-layer breakdown of one fresh batch per suite of both paths (the
     probe path's suites are named `probe_*`): an untraced batch, then
-    another with the engine's host spans (`tantivy_tpu.utils.trace`) and
+    another with the engine's host spans (`tantivy_tpu_torch.utils.trace`) and
     `torch.profiler` on. Device time is the sum of the CUDA kernels' and
     copies' own time (overlap between streams would count twice); idle
     share is one minus device time over the traced wall time. Writes the
@@ -546,7 +813,7 @@ def profile_layers(executor, stream, seed: int, path: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tantivy_tpu.utils.trace import tracer
+    from tantivy_tpu_torch.utils.trace import tracer
 
     out = {}
     logs = query_logs(stream, seed + 100, 2 * BATCH)
@@ -645,6 +912,9 @@ def main(argv=None) -> int:
           f"(nvcc " + ", ".join(
               f"{name} {_build.build_seconds[name]:.1f} s" for name in kernels
           ) + ")")
+    for name in kernels:
+        for line in _build.ptxas_report.get(name, "").splitlines():
+            print(f"ptxas {name}: {line.strip()}")
 
     print(f"index codec: {zstd_codec()}")
     t0 = time.perf_counter()
@@ -712,6 +982,11 @@ def main(argv=None) -> int:
     stats = {"group_probe": group_probe_vs_twin(log),
              "phrase_probe": phrase_probe_vs_twin(log),
              "bool_probe": bool_probe_vs_twin(probe_log)}
+    per_batch = batch_kernel_times({
+        **timing,
+        **{f"probe_{suite}": tm for suite, tm in probe_timing.items()},
+    })
+    print(f"library call: none for any kernel: {NO_LIBRARY}")
     if args.profile:
         profile_layers(executor, stream, args.seed, args.profile)
 
@@ -726,6 +1001,10 @@ def main(argv=None) -> int:
         "replaces": replaces[name],
         "launches": launches[name],
         **stats[name],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "per_batch": {suite: {key: round(v, 6) for key, v in rec.items()}
+                      for suite, rec in per_batch.get(name, {}).items()},
     } for name in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

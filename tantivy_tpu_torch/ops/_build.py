@@ -24,10 +24,11 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 #: sm_90a keeps Hopper-only instructions available; --fmad=false forbids
-#: contracting `a + b * c` into one FMA, which would change score bits
+#: contracting `a + b * c` into one FMA, which would change score bits;
+#: -Xptxas -v reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: the kernel sources, `csrc/<name>.cu`, one library each
@@ -39,6 +40,8 @@ _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: seconds each library took to build in this process (0.0 = reused)
 build_seconds: dict[str, float] = {}
+#: what ptxas reported for each library built in this process
+ptxas_report: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -90,6 +93,10 @@ def load(name: str) -> ctypes.CDLL:
                 )
             os.replace(tmp, out)
             build_seconds[name] = time.perf_counter() - t0
+            ptxas_report[name] = "\n".join(
+                line.strip() for line in proc.stderr.splitlines()
+                if "ptxas info" in line or "spill" in line
+            )
         lib = ctypes.CDLL(out)
         _libs[name] = lib
         return lib

@@ -34,7 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from tantivy_tpu.postings.format import TERMINATED
+from ..postings.format import TERMINATED
 
 from .probe_scorer import (
     T_MAX,

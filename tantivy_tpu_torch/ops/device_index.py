@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from tantivy_tpu.common import arrayio
-from tantivy_tpu.postings.format import TERMINATED
+from ..common import arrayio
+from ..postings.format import TERMINATED
 
 
 class DeviceFieldPostings:
@@ -60,7 +60,7 @@ class DeviceFieldPostings:
         """Decode every block once, on the host, with vectorised numpy
         unpack: strict-delta doc ids (uint32 wraparound cumsum,
         TERMINATED-masked pad lanes) and tfs stored minus one."""
-        from tantivy_tpu.common import bitpack
+        from ..common import bitpack
 
         n = self.num_blocks
         docs = np.full((n, 128), TERMINATED, dtype=np.uint32)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tantivy_tpu.utils.trace import debug_time
+from ..utils.trace import debug_time
 
 from .group_probe import group_probe
 from .probe_scorer import (
@@ -107,7 +107,7 @@ def _group_work(blocks, prow, clause, qid, seg, jlo_all, wid_all, frc_all,
     also wider than `kw_max` it would emit fewer singletons than numpy.
     The planner emits no such duplicates, but inputs that hold them (or
     are unsorted) take the numpy path, so both paths give one launch."""
-    from tantivy_tpu.native_probe import group_work_sorted
+    from ..native_probe import group_work_sorted
 
     if _strictly_sorted_members(blocks, prow, clause, groupable):
         native = group_work_sorted(

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tantivy_tpu.utils.trace import debug_time
+from ..utils.trace import debug_time
 
 from .phrase_probe import phrase_probe
 from .probe_scorer import NEG_INF, pack_results_seg, per_query_topk_rows_seg

@@ -1,17 +1,24 @@
-"""FusedStore with torch `cstore` and `postore` tensors.
+"""FusedStore: every (segment, field) block store concatenated into one
+row store on the executor's device, plus the host planning tables.
 
-The reference `tantivy_tpu/ops/fused_store.FusedStore` concatenates every
-(segment, field) block store into one combined row store plus host planning
-tables; it imports no jax except when it uploads. This subclass keeps its
-slab registration, host tables, `region`/`region_keys` and `rmax` logic as
-they are and replaces only the uploads: `cstore` and the phrase position
-store `postore` become int32 tensors on the executor's device, and the
-per-block last docs get one device copy for the deep probe. It does not
-set the reference's `pack_addr_ok`: the port's merge tail has one form for
-every segment and doc count. int32 is lossless for `cstore` because every
-word is < 2^31 (TERMINATED = 2^31 - 1, and cachev bits are those of a
-non-negative f32 or NaN); `postore` keeps the reference's u32 words, whose
-0xFFFFFFFF padding reads as -1.
+The layout is the reference's (`tantivy_tpu/ops/fused_store.py`), so a
+global block id indexes both the device stores and the host tables:
+* per-(segment, field) slab of cstore rows (`build_cstore_np`: docs | tfs |
+  bitcast(bm25 denominator), NaN = deleted or padding lane), each padded to
+  a multiple of 8 rows; the store pads to a row tier (`_row_tier`);
+* host planning tables (blk_base, blk_last_doc, bfac, blk_seg)
+  concatenated with the same padding;
+* per-term regions through `region(seg_ord, field, term_ord)` and the
+  composite keys `region_keys` the batched planner searches;
+* `rmax`, a range-max table over `bfac` for block-max upper bounds.
+
+`cstore` and the phrase position store `postore` are int32 tensors on the
+store's device, and the per-block last docs get one device copy for the
+deep probe. int32 is lossless for `cstore` because every word is < 2^31
+(TERMINATED = 2^31 - 1, and cachev bits are those of a non-negative f32 or
+NaN); `postore` keeps the reference's u32 words, whose 0xFFFFFFFF padding
+reads as -1. The port's merge tail has one form for every segment and doc
+count, so the store sets no `pack_addr_ok`.
 """
 
 from __future__ import annotations
@@ -19,23 +26,72 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tantivy_tpu.ops import fused_store as _ref
-from tantivy_tpu.ops.fused_store import _row_tier
-from tantivy_tpu.postings.format import TERMINATED
+from ..postings.format import TERMINATED
+from ..query.bm25 import compute_tf_cache
 
 
-class FusedStore(_ref.FusedStore):
+def build_cstore_np(docs_np, tfs_np, norm_ids_np, alive_np, cache):
+    """The [NBp, 384] u32 combined row store of one (segment, field):
+    docs | tfs | bitcast(tf-cache denominator), NaN marking deleted or
+    padding lanes; rows padded to a multiple of 8."""
+    max_doc = len(norm_ids_np)
+    safe = np.minimum(docs_np, np.uint32(max(max_doc - 1, 0)))
+    cachev = cache[norm_ids_np[safe].astype(np.int32)].astype(np.float32)
+    dead = docs_np == np.uint32(TERMINATED)
+    if alive_np is not None:
+        dead |= ~alive_np[safe]
+    cachev = np.where(dead, np.float32(np.nan), cachev)
+    out = np.concatenate(
+        [docs_np, tfs_np, cachev.view(np.uint32)], axis=1
+    )
+    nb = out.shape[0]
+    pad = (-nb) % 8
+    if pad:
+        out = np.concatenate(
+            [out, np.full((pad, 384), np.uint32(TERMINATED), np.uint32)]
+        )
+    return np.ascontiguousarray(out)
+
+
+def _row_tier(rows: int, floor: int = 128) -> int:
+    """Store rows pad up to a {1, 1.5}·pow2 ladder (waste <= 33%), as in
+    the reference, so both stores stay row-for-row equal."""
+    t = max(floor, 128)
+    while t < rows:
+        if t + t // 2 >= rows:
+            return t + t // 2
+        t *= 2
+    return t
+
+
+class FusedStore:
     def __init__(self, device="cpu"):
-        super().__init__()
         self.device = torch.device(device)
+        self.slabs: dict[tuple[int, str], dict] = {}
+        self._order: list[tuple[int, str]] = []
+        self._dirty = False
+        # concatenated host tables (padded rows included)
+        self.blk_base = np.zeros(0, dtype=np.uint32)
+        self.blk_last_doc = np.zeros(0, dtype=np.uint32)
+        self.bfac = np.zeros(0, dtype=np.float32)
+        self.blk_seg = np.zeros(0, dtype=np.int32)
+        self.num_blocks = 0
+        self.cstore = None          # [NB, 384] int32 on `device`
+        self._rmax = None
+        self._rkeys = None
         self._blk_last_t = None
+        # phrase extension, built on demand
+        self.postore = None         # [NPr, 256] int32: positions | owners
+        self.blk_pos = None         # host [NB + 1] i64 position offset
+        self._pos_dirty = False
 
     @classmethod
     def from_jax(cls, jax_fused, device="cpu") -> "FusedStore":
         """The port's store holding a reference store's state: its host
         tables as they are (the position tables `blk_pos`, `num_pos` and
         `pos_rows` included) and its cstore and, when built, its postore
-        copied to `device`, so both kernels read the same stores."""
+        copied to `device`, so both kernels read the same stores. Reads
+        attributes only; imports nothing of the reference."""
         jax_fused.ready()
         out = cls(device)
         device = out.device
@@ -44,10 +100,47 @@ class FusedStore(_ref.FusedStore):
              if k not in ("cstore", "postore")}
         )
         out.device = device
+        out._blk_last_t = None
         out.cstore = _to_device(np.array(jax_fused.cstore), device)
         if jax_fused.postore is not None:
             out.postore = _to_device(np.array(jax_fused.postore), device)
         return out
+
+    # -- slab registration -----------------------------------------------
+
+    def ensure_slab(self, seg_ord: int, field: str, dfp, alive,
+                    avg_fieldnorm) -> dict:
+        """Register (and build, in numpy) the slab of a (segment, field).
+        `alive` is a host bool mask or None. The whole store goes to the
+        device in one transfer at the next `ready()`."""
+        key = (seg_ord, field)
+        slab = self.slabs.get(key)
+        if slab is None:
+            cache = compute_tf_cache(np.float32(avg_fieldnorm))
+            a = None if alive is None else np.asarray(alive, dtype=bool)
+            cstore = build_cstore_np(
+                dfp.docs_np, dfp.tfs_np, dfp.norm_ids_np, a, cache
+            )
+            nb = dfp.num_blocks
+            nbp = -(-nb // 8) * 8
+            tf = dfp.blk_max_tf.astype(np.float32)
+            bfac = (tf / (tf + cache[dfp.blk_max_fnid])).astype(np.float32)
+            slab = {
+                "seg_ord": seg_ord,
+                "field": field,
+                "dfp": dfp,
+                "cache": cache,
+                "cstore": cstore,
+                "nb": nb,
+                "nbp": nbp,
+                "bfac": bfac,
+                "offset": -1,  # assigned at rebuild
+            }
+            self.slabs[key] = slab
+            self._order.append(key)
+            self._dirty = True
+            self._pos_dirty = True
+        return slab
 
     def _rebuild(self) -> None:
         bases, lasts, bfacs, segs, stores = [], [], [], [], []
@@ -69,7 +162,7 @@ class FusedStore(_ref.FusedStore):
             stores.append(s["cstore"])
             off += nbp
         # pad to the row tier, as the reference does, so both stores stay
-        # row-for-row equal
+        # row-for-row equal (and the widest boolean window stays in bounds)
         if off > 0:
             tier = _row_tier(off)
             pad = tier - off
@@ -94,12 +187,75 @@ class FusedStore(_ref.FusedStore):
             _to_device(np.concatenate(stores, axis=0), self.device)
             if stores else None
         )
-        from tantivy_tpu.parallel.wand import RangeMax
+        from ..parallel.wand import RangeMax
 
         self._rmax = RangeMax(self.bfac)
         self._rkeys = None
         self._blk_last_t = None
         self._dirty = False
+
+    def ready(self):
+        if self._dirty:
+            self._rebuild()
+        return self
+
+    @property
+    def rmax(self):
+        self.ready()
+        return self._rmax
+
+    @property
+    def region_keys(self):
+        """(cblast, cbbase) composite u64 keys: (term-region start << 32) |
+        block last/base doc. Regions are contiguous and doc-sorted within,
+        so one global searchsorted with a (region << 32 | doc) key answers
+        a per-region bounds query. Padding rows key by their own block
+        index, which keeps the array globally sorted."""
+        self.ready()
+        if self._rkeys is None:
+            rs = np.arange(self.num_blocks, dtype=np.uint64)
+            for key in self._order:
+                s = self.slabs[key]
+                dfp = s["dfp"]
+                tbs = np.asarray(dfp.term_block_start, dtype=np.int64)
+                tnb = np.asarray(dfp.term_num_blocks, dtype=np.int64)
+                starts = np.repeat(
+                    np.uint64(s["offset"]) + tbs.astype(np.uint64), tnb
+                )
+                rs[s["offset"]:s["offset"] + len(starts)] = starts
+            sh = np.uint64(32)
+            cblast = (rs << sh) | self.blk_last_doc.astype(np.uint64)
+            cbbase = (rs << sh) | self.blk_base.astype(np.uint64)
+            assert len(cblast) < 2 or (
+                np.all(cblast[1:] >= cblast[:-1])
+                and np.all(cbbase[1:] >= cbbase[:-1])
+            ), "composite region keys not globally sorted"
+            self._rkeys = (cblast, cbbase)
+        return self._rkeys
+
+    def region(self, seg_ord: int, field: str, term_ord: int) -> tuple[int, int]:
+        """(global block start, n_blocks) for a term of a registered slab."""
+        self.ready()
+        s = self.slabs[(seg_ord, field)]
+        dfp = s["dfp"]
+        return (
+            s["offset"] + int(dfp.term_block_start[term_ord]),
+            int(dfp.term_num_blocks[term_ord]),
+        )
+
+    def clause_blocks_ub(self, start, n, weight, others, self_pos=0,
+                         return_detail=False):
+        """`FieldWand.clause_blocks_ub` over the fused tables."""
+        from ..parallel.wand import FieldWand
+
+        return FieldWand.clause_blocks_ub(
+            self, start, n, weight, others, self_pos, return_detail
+        )
+
+    @property
+    def dfp(self):
+        # FieldWand.clause_blocks_ub reads self.dfp.blk_base/blk_last_doc
+        return self
 
     def blk_last_device(self) -> torch.Tensor:
         """`blk_last_doc` as an int32 tensor on the store's device (every
@@ -110,6 +266,8 @@ class FusedStore(_ref.FusedStore):
             self._blk_last_t = _to_device(self.blk_last_doc, self.device)
         return self._blk_last_t
 
+    # -- phrase position store ---------------------------------------------
+
     def ensure_positions(self):
         """Build the fused position store and the per-block position
         offsets, as the reference does: `postore` [NPr, 256] holds
@@ -119,8 +277,8 @@ class FusedStore(_ref.FusedStore):
 
         A slab whose field records no positions contributes none (the
         reference asserts there). Every other slab is checked once for the
-        order the phrase kernel's binary searches need: inside each term's
-        region, positions ascend by (owner doc, position)."""
+        order the phrase kernel's merges need: inside each term's region,
+        positions ascend by (owner doc, position)."""
         self.ready()
         if self.postore is not None and not self._pos_dirty:
             return
@@ -183,7 +341,7 @@ class FusedStore(_ref.FusedStore):
 
 def _check_term_order(positions, owners, term_pos_start) -> None:
     """Raise unless (owner, position) ascends inside every term's region
-    of one slab (non-strictly: the kernel's searches are lower bounds)."""
+    of one slab (non-strictly: the kernel's merges take lower bounds)."""
     if len(positions) < 2:
         return
     key = (owners.astype(np.int64) << 32) | positions.astype(np.int64)

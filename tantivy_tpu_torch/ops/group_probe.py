@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from tantivy_tpu.postings.format import TERMINATED
+from ..postings.format import TERMINATED
 
 from .probe_scorer import (
     KIND_MUST,

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from tantivy_tpu.postings.format import TERMINATED
+from ..postings.format import TERMINATED
 
 from .probe_scorer import check_tensor, group_topk
 
@@ -199,6 +199,11 @@ def phrase_probe(rows, qw, row_th, cstore, postore, *, n_partners: int,
         return phrase_probe_ref(rows, qw, row_th, cstore, postore, **kw)
     if dev.type != "cuda":
         raise ValueError(f"phrase_probe runs on cuda or cpu, not {dev}")
+    if cstore.data_ptr() % 16 or postore.data_ptr() % 16:
+        raise ValueError(
+            "cstore and postore must start on a 16-byte boundary (the "
+            "kernel copies them in 16-byte pieces)"
+        )
     lib = _lib()
     W = rows.shape[0]
     out_sc = torch.empty((W, kk), dtype=torch.float32, device=dev)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tantivy_tpu.postings.format import TERMINATED
+from ..postings.format import TERMINATED
 
 NEG_INF = np.float32(-np.inf)
 

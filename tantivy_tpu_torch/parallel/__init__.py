@@ -4,8 +4,9 @@ batches through the fused group-probe and position-probe kernels.
 Counterpart of `tantivy_tpu/parallel/__init__.py`'s `BatchExecutor`, reduced
 to its fused (Pallas-mode) paths. Host planning (termdict lookups, BM25
 weights, block-max upper bounds, the two-phase WAND threshold, hit
-collection) is the reference's numpy code; only the launch seam points at
-the port's modules. Two chains run on the device:
+collection) is the reference's numpy code, copied into this package (the
+helpers below, `parallel/wand.py`); only the launch seam differs, pointing
+at the port's modules. Two chains run on the device:
 * every term and boolean(term) query: `_search_boolean_fused` ->
   `fused_bool.launch_fused_bool` -> `fused_bool_topk` -> the group-probe
   kernel and the merge tail;
@@ -29,24 +30,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tantivy_tpu.parallel import (
-    _Q_FIXED,
-    TERMINATED_U32,
-    _chunk_hits,
-    _dedup_hits,
-    _k_eff_quant,
-    _k_eff_tb,
-    _m1,
-    _phase2_keep,
-    _q_tier,
-    _sortable_desc_np,
-    _topk_thresholds,
-)
-from tantivy_tpu.query.bm25 import Bm25Weight
-from tantivy_tpu.searcher import Searcher
-from tantivy_tpu.utils.trace import debug_time
-
 from ..ops.fused_store import FusedStore
+from ..postings.format import TERMINATED as TERMINATED_U32
+from ..query.bm25 import Bm25Weight
+from ..searcher import DocAddress, Searcher
+from ..utils.trace import debug_time
 
 NEG_INF = np.float32(-np.inf)
 
@@ -60,6 +48,148 @@ PHRASE_T_MAX = 8
 #: the two-round path on tiny corpora)
 _RATCHET_MIN_PER_Q = 16
 _RATCHET_TOP_PER_Q = 8
+
+
+def _k_eff_quant(v: int) -> int:
+    """Quantize a per-row-top-k width to ONE of two ladder values (32, 128).
+    The kernel `k` is a static arg; host finalize trims each query's
+    chunk to the true k, and per-(launch, query) top-32 ⊇ top-k for any
+    k whose dup-inflated width fits 32, so quantizing UP is exact. One
+    ladder value per clause bucket = one compiled merge-tail shape
+    regardless of the caller's k (the k=3 gate reuses the k=10 programs)."""
+    return 32 if v <= 32 else 128
+
+
+def _k_eff_tb(g, Tb: int, k: int) -> int:
+    """Per-row-top-k width: always sized for the dup-capable worst case
+    (up to Tb reporters per doc), then quantized (`_k_eff_quant`)."""
+    return _k_eff_quant(min(k * Tb, 128))
+
+
+#: fixed `num_queries` for fused launches. num_queries is a STATIC kernel
+#: arg (it sizes the [Q, k] output and the padding sentinel); the planners
+#: sub-batch every device batch to at most this many queries, so every
+#: launch shares ONE compiled num_queries and expansion (phrase prefix,
+#: dismax) can never mint a fresh shape. Padded output rows never receive
+#: hits (no work item carries their qid) and cost only bytes in the tail.
+_Q_FIXED = 256
+
+
+def _q_tier(Q: int) -> int:
+    assert Q <= _Q_FIXED, "device batch not sub-batched to _Q_FIXED"
+    return _Q_FIXED
+
+
+def _m1() -> int:
+    """Phase-1 candidate blocks per (query, segment): more phase-1 work
+    buys tighter thresholds and a smaller phase 2 (overridable for
+    experiments via TANTIVY_TPU_M1)."""
+    import os
+
+    return int(os.environ.get("TANTIVY_TPU_M1", "4"))
+
+
+def _dedup_hits(hits):
+    """In-place: sort by (score desc, DocAddress asc) and drop later
+    duplicates of the same DocAddress. Duplicates arise from the fused
+    dual-report plan (a skipped-probe lane reports a partial score for a
+    doc some full-probing lane also reports); sorting first means the kept
+    occurrence carries the max — the exact full — score."""
+    hits.sort(key=lambda x: (-float(x[0]), x[1]))
+    seen = set()
+    out = []
+    for h in hits:
+        if h[1] not in seen:
+            seen.add(h[1])
+            out.append(h)
+    hits[:] = out
+
+
+def _sortable_desc_np(v: np.ndarray) -> np.ndarray:
+    """u32 key ascending in (f32 value DESCENDING) total order. `+0.0`
+    first normalizes -0.0 to +0.0 so bit-keys agree with the host's
+    numeric tie semantics (-0.0 == 0.0 ties break by DocAddress)."""
+    v = np.ascontiguousarray(v + np.float32(0.0), dtype=np.float32)
+    u = v.view(np.uint32)
+    s = np.where(
+        u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)
+    )
+    return np.uint32(0xFFFFFFFF) - s
+
+
+def _dedup_topk_chunks(hits: list, k: int):
+    """Per-query hit CHUNKS [(scores f32, segs i32, docs u32), ...] ->
+    one chunk sorted (score desc, DocAddress asc), first occurrence per
+    address kept (= max score, the fused dual-report semantics), first k.
+    The vectorized replacement for the tuple-based `_dedup_hits`."""
+    if not hits:
+        z = np.zeros(0, dtype=np.float32)
+        return z, np.zeros(0, np.int32), np.zeros(0, np.uint32)
+    if len(hits) == 1:
+        v, s, d = hits[0]
+    else:
+        v = np.concatenate([h[0] for h in hits])
+        s = np.concatenate([h[1] for h in hits])
+        d = np.concatenate([h[2] for h in hits])
+    order = np.lexsort((d, s, _sortable_desc_np(v)))
+    v, s, d = v[order], s[order], d[order]
+    addr = (s.astype(np.uint64) << np.uint64(32)) | d.astype(np.uint64)
+    _, first = np.unique(addr, return_index=True)
+    first.sort()
+    sel = first[:k]
+    return v[sel], s[sel], d[sel]
+
+
+def _chunk_hits(hits: list, k: int):
+    """Finalize per-query chunks to the public list[(score, DocAddress)]."""
+    v, s, d = _dedup_topk_chunks(hits, k)
+    return [
+        (np.float32(v[i]), DocAddress(int(s[i]), int(d[i])))
+        for i in range(len(v))
+    ]
+
+
+def _topk_thresholds(per_query, k):
+    """(score, seg, doc) thresholds per query from the phase-1 results:
+    the kth hit's score AND DocAddress. Blocks whose upper bound ties the
+    score can only contribute if they may hold a smaller DocAddress —
+    tie-plateaus (ubiquitous under Zipf tf distributions) prune to nearly
+    nothing instead of surviving wholesale."""
+    Q = len(per_query)
+    th = np.full(Q, NEG_INF, dtype=np.float32)
+    th_seg = np.full(Q, -1, dtype=np.int64)
+    th_doc = np.zeros(Q, dtype=np.int64)
+    for qi in range(Q):
+        v, s, d = _dedup_topk_chunks(per_query[qi], k)
+        per_query[qi] = [(v, s, d)]
+        if len(v) == k:
+            th[qi] = v[-1]
+            th_seg[qi] = s[-1]
+            th_doc[qi] = d[-1]
+    return th, th_seg, th_doc
+
+
+def _phase2_keep(ub, blk_base, seg_ord, th, th_seg, th_doc):
+    """Phase-2 survivor mask for one query's blocks in one segment.
+
+    Exact compares, no margin: `FieldWand.clause_blocks_ub` guarantees
+    `ub >= score` bit-exactly in f32 (UB accumulated in the kernel's clause
+    order — see its docstring). So:
+      * ub <  th: every doc scores < th — prune.
+      * ub == th: a doc can at best TIE the kth hit; it wins only with a
+        smaller DocAddress, impossible when the whole block starts after the
+        kth hit's address — prune iff later.
+      * ub >  th: may hold a strictly better doc — keep.
+    """
+    if th == NEG_INF:
+        return np.ones(len(ub), dtype=bool)
+    if seg_ord > th_seg:
+        later = np.ones(len(ub), dtype=bool)
+    elif seg_ord == th_seg:
+        later = blk_base.astype(np.int64) > th_doc
+    else:
+        later = np.zeros(len(ub), dtype=bool)
+    return (ub > th) | ((ub == th) & ~later)
 
 
 class BatchExecutor:
@@ -81,7 +211,7 @@ class BatchExecutor:
         self.searcher = searcher
         self.device = dev
         self._device_segments = [
-            self._device_for(r) for r in searcher.segment_readers()
+            r.device() for r in searcher.segment_readers()
         ]
         self._field_stats: dict[str, object] = {}
         self._field_wand_cache: dict[tuple[int, str], object] = {}
@@ -101,16 +231,6 @@ class BatchExecutor:
         self.plan_stats: dict[str, int] = {}
         #: when a list, every kernel round's exact inputs are appended
         self.launch_log: list | None = None
-
-    @staticmethod
-    def _device_for(reader):
-        # a port-owned attribute: the reference caches its own segment
-        # mirror on `reader._device`, and both executors may share a reader
-        from ..ops.device_index import DeviceSegment
-
-        if getattr(reader, "_torch_device", None) is None:
-            reader._torch_device = DeviceSegment(reader)
-        return reader._torch_device
 
     def _field_statistics(self, field: str):
         fs = self._field_stats.get(field)
@@ -151,7 +271,7 @@ class BatchExecutor:
         plain terms and (nested) BoostQuery-wrapped terms — boost folds
         into the clause weight exactly like the host's
         `Bm25Weight.boost_by` (see BoostQuery.weight). None otherwise."""
-        from tantivy_tpu.query import BoostQuery, TermQuery
+        from ..query import BoostQuery, TermQuery
 
         if isinstance(sub, TermQuery):
             return sub, np.float32(1.0)
@@ -172,7 +292,7 @@ class BatchExecutor:
         return w
 
     def _bool_device_eligible(self, q) -> bool:
-        from tantivy_tpu.query import BooleanQuery
+        from ..query import BooleanQuery
 
         from ..ops.probe_scorer import T_MAX
 
@@ -259,7 +379,7 @@ class BatchExecutor:
         MUST columns on one item) fall back to exact host evaluation per
         (query, segment), counted in `self.fallbacks`.
         """
-        from tantivy_tpu.query import Occur
+        from ..query import Occur
 
         from ..ops import fused_bool as fb
         from ..ops import probe_scorer as ps
@@ -337,7 +457,7 @@ class BatchExecutor:
         _dtp1.__enter__()
         # pass 1: resolve term regions per (segment, query) and batch-plan
         # EVERY positive clause's UB detail in one vectorized sweep
-        from tantivy_tpu.parallel.wand import batched_clause_details
+        from .wand import batched_clause_details
 
         plans = []
         ub_calls = []
@@ -809,7 +929,7 @@ class BatchExecutor:
 
     def _field_wand(self, seg_ord: int, field: str):
         """Block-max planning state of one (segment, field), cached."""
-        from tantivy_tpu.parallel.wand import FieldWand
+        from .wand import FieldWand
 
         fw = self._field_wand_cache.get((seg_ord, field))
         if fw is None:
@@ -836,7 +956,7 @@ class BatchExecutor:
         chain (`_search_boolean_fused`) inside the same call. Every query
         must be a device-eligible boolean (term or boosted-term clauses).
         Returns list[list[(score, DocAddress)]]."""
-        from tantivy_tpu.query import Occur
+        from ..query import Occur
 
         from ..ops import probe_scorer as ps
 
@@ -1117,7 +1237,7 @@ class BatchExecutor:
     # phrase batches
 
     def _positions_field(self, field: str) -> bool:
-        from tantivy_tpu.schema import IndexRecordOption
+        from ..schema import IndexRecordOption
 
         entry = self.searcher.schema.get_field(field)
         return (
@@ -1126,7 +1246,7 @@ class BatchExecutor:
         )
 
     def _phrase_device_eligible(self, q) -> bool:
-        from tantivy_tpu.query import PhraseQuery
+        from ..query import PhraseQuery
 
         if type(q) is not PhraseQuery:
             return False
@@ -1139,7 +1259,7 @@ class BatchExecutor:
         directly (per-segment capped expansions as plan rows, see
         `_search_phrase_fused`); single-term prefixes expand to term
         sub-queries in `search_batch` instead."""
-        from tantivy_tpu.query import PhrasePrefixQuery
+        from ..query import PhrasePrefixQuery
 
         if type(q) is not PhrasePrefixQuery:
             return False
@@ -1157,8 +1277,8 @@ class BatchExecutor:
         expansion where it attains its max (any doc beating it there beats
         it in the union too), so merging the per-expansion top-k lists with
         dedup-by-address-keep-max is exact."""
-        from tantivy_tpu.query import PhraseQuery, TermQuery
-        from tantivy_tpu.schema.term import Term
+        from ..query import PhraseQuery, TermQuery
+        from ..schema.term import Term
 
         prefix = q.term_bytes[-1]
         union: set[bytes] = set()
@@ -1181,7 +1301,7 @@ class BatchExecutor:
         per segment for plain phrases; the per-segment CAPPED expansion
         count for phrase-prefixes (each expansion is its own plan row with
         its own BM25 weight)."""
-        from tantivy_tpu.query import PhrasePrefixQuery
+        from ..query import PhrasePrefixQuery
 
         readers = self.searcher.segment_readers()
         if type(q) is not PhrasePrefixQuery:
@@ -1218,8 +1338,8 @@ class BatchExecutor:
         carrying that expansion's own BM25 weight; all rows share the
         query's qid and the merge tail's dedup-keep-max realizes the
         union-max expansion semantics exactly."""
-        from tantivy_tpu.query import PhrasePrefixQuery
-        from tantivy_tpu.schema.term import Term
+        from ..query import PhrasePrefixQuery
+        from ..schema.term import Term
 
         from ..ops import fused_phrase as fp
         from ..ops.probe_scorer import t_bucket
@@ -1247,7 +1367,7 @@ class BatchExecutor:
             return out
         if rows_of and rows_of[0] > tier and Q == 1:
             # a single query's expansion rows exceed the tier: exact host
-            from tantivy_tpu.collector import TopDocs
+            from ..collector import TopDocs
 
             self._count_fallback("phrase_rows_overflow")
             return [self.searcher.search(queries[0], TopDocs(k))]
@@ -1741,8 +1861,8 @@ class BatchExecutor:
         dedup-keep-max. Every other query runs on the host engine; the
         phrase-family ones among them count in `host_routed`.
         Returns list[list[(score, DocAddress)]]."""
-        from tantivy_tpu.collector import TopDocs
-        from tantivy_tpu.query import (
+        from ..collector import TopDocs
+        from ..query import (
             BooleanQuery,
             DisjunctionMaxQuery,
             PhrasePrefixQuery,

@@ -1,8 +1,9 @@
 """The port's `BatchExecutor.search_batch` (device="cpu": the kernels' plain
 twins) against the reference JAX executor (Pallas kernels in interpret
 mode) and the host engine, on the fixtures the reference's own tests use.
-Hits must be equal: the same DocAddresses in the same order, with f32
-score bits equal."""
+The port runs on its own searcher over a byte copy of each fixture index,
+with queries rebuilt from its own classes. Hits must be equal: the same
+DocAddresses in the same order, with f32 score bits equal."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from tantivy_tpu_torch.ops.fused_store import FusedStore
 
 from test_device_ops import build_random_index
 from test_fused_bool import build_zipf_index
+from test_torch_host_parity import bits, port_searcher, to_port
 
 
 @pytest.fixture(autouse=True)
@@ -34,20 +36,16 @@ def t(w, field="body"):
     return tt.TermQuery(tt.Term.from_field_text(field, w))
 
 
-def _bits(hits):
-    return [(int(np.float32(s).view(np.int32)), a) for s, a in hits]
-
-
 def check(searcher, queries, k=10):
     """Port hits == JAX executor hits == host hits; returns the port's
     executor for counter checks."""
-    port = BatchExecutor(searcher, device="cpu")
-    got = port.search_batch(queries, k)
+    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    got = port.search_batch(to_port(queries), k)
     ref = jax_par.BatchExecutor(searcher).search_batch(queries, k)
     for q, g, r in zip(queries, got, ref):
         host = searcher.search(q, tt.TopDocs(k))
-        assert _bits(g) == _bits(r), repr(q)
-        assert _bits(g) == _bits(host), repr(q)
+        assert bits(g) == bits(r), repr(q)
+        assert bits(g) == bits(host), repr(q)
     return port
 
 
@@ -179,13 +177,13 @@ def test_phrase_queries_are_host_routed(zipf):
         tt.PhraseQuery("body", [words[0], words[2]], slop=1),
         t(words[0]),
     ]
-    port = BatchExecutor(searcher, device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu")
     port.launch_log = []
-    got = port.search_batch(queries, 10)
+    got = port.search_batch(to_port(queries), 10)
     assert port.host_routed == 1
     assert any(r["kind"] == "phrase" for r in port.launch_log)
     for q, g in zip(queries, got):
-        assert _bits(g) == _bits(searcher.search(q, tt.TopDocs(10)))
+        assert bits(g) == bits(searcher.search(q, tt.TopDocs(10)))
 
 
 def test_fused_store_matches_reference(zipf):
@@ -193,7 +191,7 @@ def test_fused_store_matches_reference(zipf):
     carried across with `FusedStore.from_jax`, word for word."""
     searcher, _ = zipf
     ref = jax_par.BatchExecutor(searcher)
-    port = BatchExecutor(searcher, device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu")
     for seg in range(len(searcher.segment_readers())):
         for field in ("body", "title"):
             ref._ensure_fused_slab(seg, field)
@@ -214,4 +212,4 @@ def test_executor_needs_its_device(zipf):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
-        BatchExecutor(searcher)
+        BatchExecutor(port_searcher(searcher))

@@ -261,7 +261,7 @@ def test_group_collapse_native_and_numpy_agree(n):
 def test_native_collapse_gap_and_unsorted_decline():
     """Pins the two facts `_group_work` relies on: the native pass drops
     members past 8 in a duplicate run, and declines unsorted keys."""
-    from tantivy_tpu.native_probe import _load, group_work_sorted
+    from tantivy_tpu_torch.native_probe import _load, group_work_sorted
 
     if _load() is None:
         pytest.skip("native probe-plan library unavailable")

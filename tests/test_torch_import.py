@@ -1,36 +1,38 @@
-"""The port imports torch and never jax: importing `tantivy_tpu_torch` and
-each of its modules, and running its phrase path on the CPU, must leave
-`jax`, and every `tantivy_tpu.ops` module other than the numpy
-`fused_store`, out of `sys.modules`; so must running its per-segment
-boolean path.
+"""The port stands alone: it imports torch, never jax, and nothing of
+`tantivy_tpu`. Importing every module of `tantivy_tpu_torch`, and running
+its phrase path and its per-segment boolean path on the CPU, must leave no
+`jax` and no `tantivy_tpu` / `tantivy_tpu.*` module in `sys.modules`; those
+run in a fresh interpreter, because this test process has already imported
+both (tests/conftest.py). A static check parses every `.py` file of the
+port, and `chip_smoke.py`, and fails on any import of `tantivy_tpu`."""
 
-Runs in a fresh interpreter, because this test process has already
-imported jax (tests/conftest.py)."""
-
+import ast
 import os
 import subprocess
 import sys
 
-MODULES = (
-    "tantivy_tpu_torch",
-    "tantivy_tpu_torch.ops._build",
-    "tantivy_tpu_torch.ops.bool_probe",
-    "tantivy_tpu_torch.ops.device_index",
-    "tantivy_tpu_torch.ops.fmath",
-    "tantivy_tpu_torch.ops.fused_bool",
-    "tantivy_tpu_torch.ops.fused_phrase",
-    "tantivy_tpu_torch.ops.fused_store",
-    "tantivy_tpu_torch.ops.group_probe",
-    "tantivy_tpu_torch.ops.phrase_probe",
-    "tantivy_tpu_torch.ops.probe_scorer",
-    "tantivy_tpu_torch.parallel",
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tantivy_tpu_torch")
+
+#: every `.py` file of the port, relative to the repo root, and the smoke
+SOURCES = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")
+) + ["chip_smoke.py"]
+
+#: every module of the port, by its dotted name
+MODULES = tuple(
+    src[:-3].replace(os.sep, ".").removesuffix(".__init__")
+    for src in SOURCES if src.startswith("tantivy_tpu_torch")
 )
 
 LOADED = """
 bad = sorted(
     m for m in sys.modules
-    if m == "jax" or m.startswith("jax.")
-    or (m.startswith("tantivy_tpu.ops.") and m != "tantivy_tpu.ops.fused_store")
+    if m in ("jax", "tantivy_tpu")
+    or m.startswith(("jax.", "tantivy_tpu."))
 )
 print(" ".join(bad))
 """
@@ -104,17 +106,17 @@ assert bool_probe.launches == 0
 
 
 def _run(program, *args):
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root)
+    env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
         [sys.executable, "-c", program, *args],
-        capture_output=True, text=True, cwd=root, env=env, timeout=120,
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"loaded: {out.stdout.strip()}"
 
 
 def test_port_imports_no_jax():
+    assert len(MODULES) > 50, MODULES
     _run(PROGRAM, *MODULES)
 
 
@@ -124,3 +126,23 @@ def test_phrase_path_runs_without_jax():
 
 def test_probe_path_runs_without_jax():
     _run(PROBE_RUN)
+
+
+def _imports_reference(node) -> bool:
+    if isinstance(node, ast.Import):
+        names = [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        names = [node.module or ""]
+    else:
+        return False
+    return any(n == "tantivy_tpu" or n.startswith("tantivy_tpu.")
+               for n in names)
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_no_reference(source):
+    with open(os.path.join(ROOT, source)) as f:
+        tree = ast.parse(f.read(), source)
+    bad = [f"{source}:{n.lineno}" for n in ast.walk(tree)
+           if _imports_reference(n)]
+    assert not bad, f"imports of tantivy_tpu at {bad}"

@@ -1,8 +1,9 @@
 """The port's phrase path (`search_batch(device="cpu")`: kernel K2's plain
 twin) against the reference JAX executor (Pallas kernels in interpret mode)
 and the host engine, on the reference's own phrase corpus
-(`test_device_phrase.build_phrase_index`: 400 docs, 2 segments). Hits must
-be equal: the same DocAddresses in the same order, with f32 score bits
+(`test_device_phrase.build_phrase_index`: 400 docs, 2 segments), which the
+port reads from a byte copy with its own searcher and query classes. Hits
+must be equal: the same DocAddresses in the same order, with f32 score bits
 equal. Also: the port's position store against the reference's, and the
 port's phrase constants against the reference's."""
 
@@ -20,6 +21,7 @@ from tantivy_tpu_torch.ops import fused_phrase as fp
 from tantivy_tpu_torch.ops.fused_store import FusedStore
 
 from test_device_phrase import build_phrase_index, sample_phrases
+from test_torch_host_parity import bits, port_searcher, to_port
 
 
 @pytest.fixture(autouse=True)
@@ -33,21 +35,17 @@ def corpus():
     return index.reader().searcher(), words, texts
 
 
-def _bits(hits):
-    return [(int(np.float32(s).view(np.int32)), a) for s, a in hits]
-
-
 def check(searcher, queries, k=10):
     """Port hits == JAX executor hits == host hits; returns the port's
     executor for counter checks."""
-    port = BatchExecutor(searcher, device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu")
     port.launch_log = []
-    got = port.search_batch(queries, k)
+    got = port.search_batch(to_port(queries), k)
     ref = jax_par.BatchExecutor(searcher).search_batch(queries, k)
     for q, g, r in zip(queries, got, ref):
         host = searcher.search(q, tt.TopDocs(k))
-        assert _bits(g) == _bits(r), repr(q)
-        assert _bits(g) == _bits(host), repr(q)
+        assert bits(g) == bits(r), repr(q)
+        assert bits(g) == bits(host), repr(q)
     return port
 
 
@@ -209,10 +207,10 @@ def test_positions_of_field_without_positions():
         tt.TermQuery(tt.Term.from_field_text("tag", "t1")),
         tt.PhraseQuery("body", ["w1", "w2"]),
     ]
-    port = BatchExecutor(searcher, device="cpu")
-    got = port.search_batch(queries, 10)
+    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    got = port.search_batch(to_port(queries), 10)
     for q, g in zip(queries, got):
-        assert _bits(g) == _bits(searcher.search(q, tt.TopDocs(10))), repr(q)
+        assert bits(g) == bits(searcher.search(q, tt.TopDocs(10))), repr(q)
     assert port.host_routed == 0
     with pytest.raises(AssertionError):
         jax_par.BatchExecutor(searcher).search_batch(queries, 10)
@@ -224,7 +222,7 @@ def test_position_store_matches_reference(corpus):
     `FusedStore.from_jax` carries all of it across."""
     searcher, _, _ = corpus
     ref = jax_par.BatchExecutor(searcher)
-    port = BatchExecutor(searcher, device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu")
     for seg in range(len(searcher.segment_readers())):
         ref._ensure_fused_slab(seg, "body")
         port._ensure_fused_slab(seg, "body")

@@ -2,7 +2,8 @@
 `BatchExecutor.search_boolean_batch` on device="cpu" (kernel K3's twin and
 the deep per-lane probe), against the reference's `search_boolean_batch`
 (its XLA per-segment path on the CPU, and once its own Pallas K3 in
-interpret mode) and the host engine. Hits must be equal: the same
+interpret mode) and the host engine. The port reads each index from a byte
+copy with its own searcher and query classes. Hits must be equal: the same
 DocAddresses in the same order, with f32 score bits equal."""
 
 import numpy as np
@@ -16,27 +17,24 @@ from tantivy_tpu_torch import BatchExecutor
 
 from test_device_ops import build_random_index
 from test_probe_wand import random_bool_query
+from test_torch_host_parity import bits, port_searcher, to_port
 
 
 def t(w, field="body"):
     return tt.TermQuery(tt.Term.from_field_text(field, w))
 
 
-def _bits(hits):
-    return [(int(np.float32(s).view(np.int32)), a) for s, a in hits]
-
-
 def check(searcher, queries, k=10):
     """Port hits == reference hits == host hits; returns the port's
     executor (its launch log on) for counter checks."""
-    port = BatchExecutor(searcher, device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu")
     port.launch_log = []
-    got = port.search_boolean_batch(queries, k)
+    got = port.search_boolean_batch(to_port(queries), k)
     ref = jax_par.BatchExecutor(searcher).search_boolean_batch(queries, k)
     assert len(got) == len(ref) == len(queries)
     for q, g, r in zip(queries, got, ref):
-        assert _bits(g) == _bits(r), repr(q)
-        assert _bits(g) == _bits(searcher.search(q, tt.TopDocs(k))), repr(q)
+        assert bits(g) == bits(r), repr(q)
+        assert bits(g) == bits(searcher.search(q, tt.TopDocs(k))), repr(q)
     return port
 
 
@@ -135,27 +133,27 @@ def test_multi_field_query_runs_the_fused_chain(wide_index, monkeypatch):
         tt.BooleanQuery([(tt.Occur.MUST, t("m", "body")),
                          (tt.Occur.MUST_NOT, t("r", "title"))]),
     ]
-    port = BatchExecutor(wide_index, device="cpu")
+    port = BatchExecutor(port_searcher(wide_index), device="cpu")
     port.launch_log = []
-    got = port.search_boolean_batch(queries, 10)
+    got = port.search_boolean_batch(to_port(queries), 10)
     kinds = {rec["kind"] for rec in port.launch_log}
     assert kinds == {"bool", "probe"}
     monkeypatch.setenv("TANTIVY_TPU_PALLAS", "1")
     ref = jax_par.BatchExecutor(wide_index).search_batch(queries, 10)
     for q, g, r in zip(queries, got, ref):
-        assert _bits(g) == _bits(r), repr(q)
+        assert bits(g) == bits(r), repr(q)
     for q, g in zip(queries[1:], got[1:]):
-        assert _bits(g) == _bits(wide_index.search(q, tt.TopDocs(10)))
+        assert bits(g) == bits(wide_index.search(q, tt.TopDocs(10)))
     # a fault of the fused chain in both packages: a clause on another
     # field is scored with the lane's own field norm, so doc 5 (body and
     # title both hold `r`, with different field lengths) scores
     # 0x40e113bc instead of the host engine's 0x40e9433e
-    doc5 = tt.DocAddress(0, 5)
+    doc5 = (0, 5)
     host = wide_index.search(queries[0], tt.TopDocs(10))
-    assert dict((a, s) for s, a in _bits(got[0]))[doc5] == 0x40E113BC
-    assert dict((a, s) for s, a in _bits(host))[doc5] == 0x40E9433E
+    assert dict((a, s) for s, a in bits(got[0]))[doc5] == 0x40E113BC
+    assert dict((a, s) for s, a in bits(host))[doc5] == 0x40E9433E
     with pytest.raises(ValueError):
-        port.search_boolean_batch([t("h")], 10)
+        port.search_boolean_batch([to_port(t("h"))], 10)
 
 
 def test_reference_pallas_k3_agrees(monkeypatch):
@@ -181,7 +179,8 @@ def test_reference_pallas_k3_agrees(monkeypatch):
     queries = [random_bool_query(rng, words) for _ in range(12)]
     ref = jax_par.BatchExecutor(searcher).search_boolean_batch(queries, 10)
     assert k3_calls, "the reference did not reach its Pallas K3"
-    got = BatchExecutor(searcher, device="cpu").search_boolean_batch(
-        queries, 10)
+    got = BatchExecutor(port_searcher(searcher),
+                        device="cpu").search_boolean_batch(to_port(queries),
+                                                           10)
     for q, g, r in zip(queries, got, ref):
-        assert _bits(g) == _bits(r), repr(q)
+        assert bits(g) == bits(r), repr(q)
