@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--docs N] [--seed S] [--profile PATH]
+                          [--baseline NAME=DIR ...]
 
 Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
@@ -8,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
 2. build: compiles the group-probe, phrase-probe and windowed-probe kernels
    from `tantivy_tpu_torch/csrc` with nvcc into `build/kernels/`, all at
    once, and prints what ptxas reports for each (registers, shared memory,
-   spills);
+   spills) and each kernel's threads, shared memory per CTA and CTAs
+   resident per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`);
 3. index: a Zipf corpus (one `body` TEXT field, windows of 20-100 tokens
    over a 30,000-word token stream built from the seed), committed in 4
    segments;
@@ -37,12 +39,22 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    and a second windowed-probe chunk at W = 8,192, kw = 64, T = 4) run
    through the kernel and its plain PyTorch twin on the card; scores must
    be bitwise equal and docs equal; prints both times and the bound;
+   then each synthetic hard case of `ops/kernel_cases.py` (1,024 tied
+   survivors, 16 clauses, sub-windows of up to 255 rows, wide windows
+   with lane docs in every row, windows at the store's end) at
+   kk = 1, 10 and 128 through the group-probe or windowed-probe kernel and
+   its twin, bitwise;
 8. per batch: the real chunks one timed batch of each suite of both paths
    launched, replayed through their kernel, each chunk timed between CUDA
    events; prints per kernel and suite the launches per timed batch, the
    kernel ms summed over the chunks, the bytes they must move, the bound
    (those bytes at the card's memory rate; the kernels do no tensor-core
-   work) and the share of the bound the kernel reaches;
+   work), the share of the bound the kernel reaches and its occupancy
+   (CTAs resident per SM, threads and shared memory per CTA); with
+   `--baseline NAME=DIR`, every chunk (and each synthetic chunk) also runs
+   through the kernels built from the sources in DIR, an earlier tree's
+   `tantivy_tpu_torch/csrc`, and their ms and the chunks whose output
+   differs from the current kernel's are printed beside;
 9. with `--profile PATH` only: one more fresh batch per timed suite of
    both paths with the engine's host spans and `torch.profiler` on; the
    per-layer breakdown (host span ms, device ms per kernel, idle share)
@@ -258,6 +270,67 @@ def launch_counts() -> dict:
     return {"group_probe": group_probe.launches,
             "phrase_probe": phrase_probe.launches,
             "bool_probe": bool_probe.launches}
+
+
+def build_kernel(name: str, src_dir: str, tag: str):
+    """The kernel library built from `src_dir/<name>.cu` (with the headers
+    beside it) with the port's nvcc flags into build/kernels/<tag>/, for a
+    baseline run beside the current kernels; None when the directory holds
+    no such source."""
+    import ctypes
+    import os
+
+    from tantivy_tpu_torch.ops import _build
+
+    src = os.path.join(src_dir, f"{name}.cu")
+    if not os.path.exists(src):
+        return None
+    out_dir = os.path.join(_build.BUILD_DIR, tag)
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"lib{name}.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                           src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
+    return ctypes.CDLL(out)
+
+
+class kernel_lib:
+    """Within the block, kernel `name`'s wrapper launches through `lib`
+    (a baseline build) instead of the current build."""
+
+    def __init__(self, name, lib):
+        self.name, self.lib = name, lib
+
+    def __enter__(self):
+        from tantivy_tpu_torch.ops import _build
+
+        self.saved = _build.load(self.name)
+        _build._libs[self.name] = self.lib
+
+    def __exit__(self, *exc):
+        from tantivy_tpu_torch.ops import _build
+
+        _build._libs[self.name] = self.saved
+
+
+def occupancy(lib, name: str) -> dict:
+    """Threads, shared memory per CTA and CTAs resident per SM of kernel
+    `name` in `lib` (the phrase kernel's at 1 and 3 partners)."""
+    import ctypes
+
+    def query(*lead):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        fn = getattr(lib, f"{name}_occupancy")
+        err = fn(*lead, *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"{name}_occupancy: CUDA error {err}")
+        return dict(zip(("threads", "smem_bytes", "ctas_per_sm"),
+                        (v.value for v in vals)))
+
+    if name == "phrase_probe":
+        return {f"S{s}": query(s) for s in (1, 3)}
+    return query()
 
 
 def per_batch_launches(before: dict) -> dict:
@@ -618,6 +691,12 @@ def bool_probe_bytes(rec, rows) -> int:
             + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
 
 
+def _rounded(v):
+    if isinstance(v, dict):
+        return {k: _rounded(x) for k, x in v.items()}
+    return round(v, 6)
+
+
 def bound_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
@@ -655,37 +734,125 @@ def _event_ms(fn, reps: int = 3) -> float:
     return float(np.median(times))
 
 
-def batch_kernel_times(timings: dict) -> dict:
+def _same(a, b) -> bool:
+    import torch
+
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
+
+
+def occupancy_text(occ: dict) -> str:
+    """`occupancy()`'s record as text: CTAs resident per SM, threads per
+    CTA and shared memory per CTA (per partner count for the phrase
+    kernel)."""
+    if "threads" in occ:
+        return (f"{occ['ctas_per_sm']} CTAs/SM of {occ['threads']} threads "
+                f"at {occ['smem_bytes']} B smem")
+    return ", ".join(f"{key}: {occupancy_text(v)}" for key, v in occ.items())
+
+
+def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
     """Per kernel and suite: the real chunks of one timed batch replayed
     through the kernel, each chunk timed between CUDA events; the kernel ms
     summed over the batch's chunks, the bytes they must move, the bound
     (those bytes at the card's memory rate) and the share of the bound the
-    kernel reaches, beside the launches per timed batch."""
+    kernel reaches, beside the launches per timed batch and the kernel's
+    occupancy (`occ`, from `occupancy()`). `baselines` maps
+    a name to {kernel: library}: each chunk also runs through those, in
+    turn with the current kernel, and their ms per batch and the chunks
+    whose output differs from the current kernel's are kept."""
     out = {}
     for suite, tm in timings.items():
         per = {}
         for rec in tm["batch_log"]:
             for name, call, n_bytes in chunk_work(rec):
-                acc = per.setdefault(name, [0.0, 0, 0])
-                acc[0] += _event_ms(call)
-                acc[1] += n_bytes
-                acc[2] += 1
-        for name, (ms, n_bytes, chunks) in per.items():
+                acc = per.setdefault(name, {"ms": 0.0, "bytes": 0,
+                                            "chunks": 0, "baseline_ms": {},
+                                            "baseline_differs": {}})
+                want = call()
+                acc["ms"] += _event_ms(call)
+                for tag, libs in baselines.items():
+                    if libs.get(name) is None:
+                        continue
+                    with kernel_lib(name, libs[name]):
+                        acc["baseline_ms"][tag] = (
+                            acc["baseline_ms"].get(tag, 0.0) + _event_ms(call))
+                        differs = not _same(call(), want)
+                    acc["baseline_differs"][tag] = (
+                        acc["baseline_differs"].get(tag, 0) + differs)
+                acc["bytes"] += n_bytes
+                acc["chunks"] += 1
+        for name, acc in per.items():
+            ms, n_bytes, chunks = acc["ms"], acc["bytes"], acc["chunks"]
             b = bound_ms(n_bytes)
             out.setdefault(name, {})[suite] = {
                 "launches_per_batch": tm["launches_per_batch"].get(name, 0),
                 "chunks": chunks, "ms": ms, "bytes": n_bytes,
                 "bound_ms": b, "share": b / ms if ms else 0.0,
+                **({"baseline_ms": acc["baseline_ms"],
+                    "baseline_differs": acc["baseline_differs"]}
+                   if acc["baseline_ms"] else {}),
             }
+            base = "".join(
+                f"; {tag} {bms:.3f} ms ({acc['baseline_differs'][tag]} "
+                f"chunks differ)" for tag, bms in acc["baseline_ms"].items())
             print(f"per batch {name} {suite}: "
                   f"{tm['launches_per_batch'].get(name, 0):.1f} launches per "
                   f"timed batch, {chunks} chunks replayed: kernel {ms:.3f} ms,"
                   f" {n_bytes} bytes, bound {b:.4f} ms, share of bound "
-                  f"{b / ms if ms else 0.0:.4f}")
+                  f"{b / ms if ms else 0.0:.4f} ({occupancy_text(occ[name])})"
+                  f"{base}")
     return out
 
 
-def group_probe_vs_twin(log) -> dict:
+def baseline_synthetic(name: str, kern, baselines: dict) -> dict:
+    """ms of the synthetic chunk's call `kern` through each baseline build
+    of kernel `name` that exists."""
+    out = {}
+    for tag, libs in baselines.items():
+        if libs.get(name) is not None:
+            with kernel_lib(name, libs[name]):
+                out[tag] = _time_ms(kern, 20)
+            print(f"baseline {tag} {name} synthetic: {out[tag]:.3f} ms")
+    return out
+
+
+def hard_cases_vs_twin() -> None:
+    """Each synthetic hard case of `ops/kernel_cases.py` at kk = 1, 10 and
+    128 through the group-probe or windowed-probe kernel and its twin on
+    the card, bitwise."""
+    import torch
+
+    from tantivy_tpu_torch.ops import kernel_cases as kc
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    cases = [("group", kind, None, kc.group_case(kind))
+             for kind in kc.GROUP_KINDS]
+    cases += [("bool", kind, kw, kc.bool_case(kind, kw))
+              for kind, kw in (("every_row", 64), ("store_end", 8),
+                               ("store_end", 64))]
+    for kernel, kind, kw, case in cases:
+        rows, cstore = dev(case["rows"]), dev(case["cstore"].view(np.int32))
+        tables = tuple(dev(a) for a in case["tables"])
+        for kk in (1, 10, 128):
+            if kernel == "group":
+                rec = dict(tables=tables, cstore=cstore, k=kk,
+                           num_prows=case["num_prows"])
+                calls = group_calls(rec, rows)
+            else:
+                rec = dict(tables=tables, cstore=cstore, k=kk, kw=kw,
+                           num_queries=case["num_queries"])
+                calls = bool_calls(rec, rows)
+            name = f"{kernel}_probe hard case {kind}" + (
+                f" kw={kw}" if kw else "") + f" kk={kk}"
+            _, n_rep = _compare(name, *calls)
+            print(f"kernel==twin {name}: W={rows.shape[0]} "
+                  f"T={case['T']} reported={n_rep} bitwise equal")
+
+
+def group_probe_vs_twin(log, baselines: dict) -> dict:
     max_err = 0.0
     picks = pick_launches(
         log, "bool", lambda r: (r["n_clauses"], _phase2(r["tables"][5])),
@@ -710,10 +877,12 @@ def group_probe_vs_twin(log) -> dict:
           f"bitwise equal; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
           f"bound {bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound}
+            "bound_ms": bound,
+            "baseline_synthetic_ms": baseline_synthetic("group_probe", kern,
+                                                        baselines)}
 
 
-def phrase_probe_vs_twin(log) -> dict:
+def phrase_probe_vs_twin(log, baselines: dict) -> dict:
     from tantivy_tpu_torch.ops.fused_phrase import _PHRASE_RUNGS
 
     picks = pick_launches(
@@ -754,10 +923,12 @@ def phrase_probe_vs_twin(log) -> dict:
           f"reported={n_rep} bitwise equal; kernel {ms:.3f} ms, twin "
           f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound}
+            "bound_ms": bound,
+            "baseline_synthetic_ms": baseline_synthetic("phrase_probe", kern,
+                                                        baselines)}
 
 
-def bool_probe_vs_twin(log) -> dict:
+def bool_probe_vs_twin(log, baselines: dict) -> dict:
     chosen = {}
     for rec in log:
         if rec["kind"] == "probe":
@@ -792,13 +963,15 @@ def bool_probe_vs_twin(log) -> dict:
         ms = _time_ms(kern, 20)
         plain_ms = _time_ms(twin, 3)
         bound = bound_ms(bool_probe_bytes(rec, rows))
-        times.append((ms, plain_ms, bound))
+        times.append((ms, plain_ms, bound,
+                      baseline_synthetic("bool_probe", kern, baselines)))
         print(f"kernel==twin bool_probe synthetic: W={W} kw={kw} T={t} "
               f"kk={min(rec['k'], 128)} reported={n_rep} bitwise equal; "
               f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
               f"{bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": times[0][0],
-            "plain_ms": times[0][1], "bound_ms": times[0][2]}
+            "plain_ms": times[0][1], "bound_ms": times[0][2],
+            "baseline_synthetic_ms": times[0][3]}
 
 
 def profile_layers(executor, stream, seed: int, path: str) -> None:
@@ -875,7 +1048,13 @@ def main(argv=None) -> int:
                     help="also write a per-layer breakdown (host spans, "
                          "device time, idle share) of one more batch per "
                          "suite to PATH as JSON")
+    ap.add_argument("--baseline", metavar="NAME=DIR", action="append",
+                    default=[],
+                    help="also time every replayed chunk through the "
+                         "kernels built from the sources in DIR (an "
+                         "earlier commit's tantivy_tpu_torch/csrc)")
     args = ap.parse_args(argv)
+    baseline_dirs = dict(spec.split("=", 1) for spec in args.baseline)
 
     import torch
 
@@ -902,19 +1081,34 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}")
     print(f"gpu: {gpu}")
 
-    # one nvcc per kernel source, all started together
+    # one nvcc per kernel source, the baselines' too, all started together
     kernels = _build.KERNELS
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        for fut in [pool.submit(_build.load, name) for name in kernels]:
+    with ThreadPoolExecutor(len(kernels) * (1 + len(baseline_dirs))) as pool:
+        futs = [pool.submit(_build.load, name) for name in kernels]
+        base_futs = {tag: {name: pool.submit(build_kernel, name, src, tag)
+                           for name in kernels}
+                     for tag, src in baseline_dirs.items()}
+        for fut in futs:
             fut.result()
+        baselines = {tag: {name: fut.result() for name, fut in libs.items()}
+                     for tag, libs in base_futs.items()}
     print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc " + ", ".join(
               f"{name} {_build.build_seconds[name]:.1f} s" for name in kernels
-          ) + ")")
+          ) + ")" + "".join(f"; baseline {tag} from {baseline_dirs[tag]}"
+                            for tag in baselines))
     for name in kernels:
         for line in _build.ptxas_report.get(name, "").splitlines():
             print(f"ptxas {name}: {line.strip()}")
+    occ = {name: occupancy(_build.load(name), name) for name in kernels}
+    for name in kernels:
+        print(f"occupancy {name}: {occ[name]}")
+        for tag, libs in baselines.items():
+            lib = libs.get(name)
+            if lib is not None and hasattr(lib, f"{name}_occupancy"):
+                print(f"occupancy {name} baseline {tag}: "
+                      f"{occupancy(lib, name)}")
 
     print(f"index codec: {zstd_codec()}")
     t0 = time.perf_counter()
@@ -979,13 +1173,14 @@ def main(argv=None) -> int:
         raise AssertionError("the probe path launched no bool_probe kernel")
 
     check_exact(searcher, {**answered, **probe_answered}, args.seed)
-    stats = {"group_probe": group_probe_vs_twin(log),
-             "phrase_probe": phrase_probe_vs_twin(log),
-             "bool_probe": bool_probe_vs_twin(probe_log)}
+    stats = {"group_probe": group_probe_vs_twin(log, baselines),
+             "phrase_probe": phrase_probe_vs_twin(log, baselines),
+             "bool_probe": bool_probe_vs_twin(probe_log, baselines)}
+    hard_cases_vs_twin()
     per_batch = batch_kernel_times({
         **timing,
         **{f"probe_{suite}": tm for suite, tm in probe_timing.items()},
-    })
+    }, baselines, occ)
     print(f"library call: none for any kernel: {NO_LIBRARY}")
     if args.profile:
         profile_layers(executor, stream, args.seed, args.profile)
@@ -1001,9 +1196,10 @@ def main(argv=None) -> int:
         "replaces": replaces[name],
         "launches": launches[name],
         **stats[name],
+        "occupancy": occ[name],
         "bound_by": "bytes",
         "library_ms": None,
-        "per_batch": {suite: {key: round(v, 6) for key, v in rec.items()}
+        "per_batch": {suite: {key: _rounded(v) for key, v in rec.items()}
                       for suite, rec in per_batch.get(name, {}).items()},
     } for name in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,24 +11,37 @@
 //
 // Per lane and member row: the lane's doc is probed in every clause t's
 // member sub-window, cstore rows [jlo_t + off, jlo_t + off + len) (packed per
-// member as (off << 8) | len, len 0 = no probe). Docs ascend inside a clause
-// region, so a 7-step binary search per window row is exact. The BM25 score
-// is summed in clause order, sum_t w_t * (tf_t / (tf_t + cachev)), with
+// member as (off << 8) | len, len 0 = no probe). The BM25 score is summed in
+// clause order, sum_t w_t * (tf_t / (tf_t + cachev)), by one thread, with
 // explicitly rounded f32 intrinsics, so no FMA contraction and no fast-math
-// division can change a bit against the host engine. A lane reports iff it is
-// alive, its clause is the primary (lowest present fully-probing) clause,
-// the MUST/SHOULD counts are met and no MUST_NOT clause is present.
-// The group then keeps its top-kk reporting lanes with score >= row_th[prow],
-// ordered by (score desc, flat index r*128 + lane asc).
+// division can change a bit against the host engine. A lane reports iff it
+// is alive, its clause is the primary (lowest present fully-probing) clause,
+// the MUST/SHOULD counts are met and no MUST_NOT clause is present. The group
+// then keeps its top-kk reporting lanes with score >= row_th[prow], ordered by
+// (score desc, flat index r*128 + lane asc), through the radix select of
+// group_topk.cuh.
 //
-// What bounds it on an H100: memory latency, not bandwidth or arithmetic.
-// Each member-row probe is a dependent chain of 7 loads into a 1.5 KB cstore
-// row; all 32 threads of a warp read the same row, so the loads are
-// broadcasts that mostly hit L1/L2. The design keeps the group's scalar row
-// and clause tables in shared memory, launches one CTA per group so that
-// thousands of CTAs hide that latency, and compacts survivors into shared
-// memory, where an O(n^2) rank count selects the top-kk (survivors are few
-// once phase 2 carries a threshold).
+// Precondition (checked where the fused store is built): the host clips
+// every member sub-window to its clause's term region, and inside a region
+// docs ascend strictly across rows, apart from TERMINATED padding after the
+// last doc. So a lane's doc can lie in at most one sub-window row, which
+// the probe of row_probe.cuh finds; its tf is the sum the TPU kernel's
+// equality compares take.
+//
+// What bounds it on an H100: the latency of dependent loads. The first
+// port of this kernel searched every sub-window row in turn with a binary
+// search, 8 loads each waiting on the one before, and ranked up to 1,024
+// survivors against each other; the 12 CTAs resident on an SM did not hide
+// those chains. This design keeps one lane a thread, as half of all groups
+// have a single live member (spreading the 1,024 (member, lane) slots over
+// more threads leaves most of them idle), and cuts the chains instead: each
+// probe takes row_probe.cuh's 4-ary searches, over the sub-window rows'
+// first docs, then in the one row found: 3 + ceil(log4(len)) dependent
+// steps instead of 8 * len. The top-kk is group_topk.cuh's. A fully masked
+// group (launch padding) only writes its fill. Designs that staged the
+// member rows and the sub-windows in shared memory with cp.async, or
+// interleaved the probes of 2-4 members or clauses, measured slower on the
+// card (PERF.md, Findings): they cost registers or barriers, and so CTAs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (see ops/_build.py).
@@ -38,6 +51,7 @@
 #include <stdint.h>
 
 #include "group_topk.cuh"
+#include "row_probe.cuh"
 
 namespace {
 
@@ -50,27 +64,6 @@ constexpr int kMaxStride = 256;
 constexpr int kMust = 0;
 constexpr int kShould = 1;
 constexpr int kMustNot = 2;
-
-// Adds the tf of `doc` to *tf and returns true when `doc` is in the 128
-// ascending doc ids of one cstore row.
-__device__ __forceinline__ bool probe_row(const int32_t* __restrict__ row,
-                                          int32_t doc, int32_t* tf) {
-  int lo = 0;
-  int hi = kLanes;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(row + mid) < doc) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  if (lo < kLanes && __ldg(row + lo) == doc) {
-    *tf += __ldg(row + kLanes + lo);
-    return true;
-  }
-  return false;
-}
 
 __global__ void __launch_bounds__(kLanes) group_probe_kernel(
     const int32_t* __restrict__ rows, int stride, int n_clauses,
@@ -88,10 +81,13 @@ __global__ void __launch_bounds__(kLanes) group_probe_kernel(
   __shared__ int32_t c_flat[kCand];
   __shared__ int32_t c_doc[kCand];
   __shared__ int n_sur;
+  __shared__ tantivy_port::TopkScratch s_topk;
 
   const int g = blockIdx.x;
   const int lane = threadIdx.x;
   const int T = n_clauses;
+  float* osc = out_scores + (long long)g * kk;
+  int32_t* odoc = out_docs + (long long)g * kk;
   const int32_t* grow = rows + (long long)g * stride;
   for (int i = lane; i < stride; i += kLanes) s_row[i] = grow[i];
   if (lane == 0) n_sur = 0;
@@ -100,77 +96,81 @@ __global__ void __launch_bounds__(kLanes) group_probe_kernel(
   const int32_t row_base = s_row[0];
   const int32_t prow = s_row[1];
   const int32_t lcl = s_row[2];
-  const int32_t mask = s_row[3];
   // fully-masked groups are padding; rows past num_prows report nothing
-  const bool live = mask != 0 && prow >= 0 && prow < num_prows;
-  if (live && lane < T) {
+  if (!(s_row[3] != 0 && prow >= 0 && prow < num_prows)) {
+    for (int j = lane; j < kk; j += kLanes) {
+      osc[j] = -INFINITY;
+      odoc[j] = tantivy_port::kTerminatedDoc;
+    }
+    return;
+  }
+  if (lane < T) {
     s_weight[lane] = cl_weight[prow * T + lane];
     s_kind[lane] = cl_kind[prow * T + lane];
     s_ship[lane] = cl_ship[prow * T + lane];
   }
+  const int32_t need_must = req_must[prow];
+  const int32_t need_should = req_should[prow];
+  const float th = row_th[prow];
   __syncthreads();
 
-  if (live) {
-    const int32_t need_must = req_must[prow];
-    const int32_t need_should = req_should[prow];
-    const float th = row_th[prow];
-    for (int r = 0; r < kMembers; ++r) {
-      if (((mask >> r) & 1) == 0) continue;
-      const long long lrow = (long long)row_base + r;
-      if (lrow < 0 || lrow >= n_store_rows) continue;
-      const int32_t* crow = cstore + lrow * kRowWords;
-      const int32_t doc = crow[lane];
-      const int32_t tf_own = crow[kLanes + lane];
-      const float cachev = __int_as_float(crow[2 * kLanes + lane]);
-      if (doc == tantivy_port::kTerminatedDoc || isnan(cachev)) continue;
+  for (int r = 0; r < kMembers; ++r) {
+    const long long lrow = (long long)row_base + r;
+    if (((s_row[3] >> r) & 1) == 0 || lrow < 0 || lrow >= n_store_rows) {
+      continue;
+    }
+    const int32_t* crow = cstore + lrow * kRowWords;
+    const int32_t doc = __ldg(crow + lane);
+    const int32_t tf_own = __ldg(crow + kLanes + lane);
+    const float cachev = __int_as_float(__ldg(crow + 2 * kLanes + lane));
+    if (doc == tantivy_port::kTerminatedDoc || isnan(cachev)) continue;
 
-      float score = 0.0f;
-      int cnt_must = 0;
-      int cnt_should = 0;
-      bool has_not = false;
-      int primary = kTMax + 1;
-      for (int t = 0; t < T; ++t) {
-        const int32_t packed = s_row[4 + T + kMembers * t + r];
-        const int32_t off = packed >> 8;
-        const int32_t len = packed & 255;
-        const int32_t jlo = s_row[4 + t];
-        bool found = false;
-        int32_t tf_probe = 0;
-        if (len > 0 && jlo >= 0) {
-          for (int i = 0; i < len; ++i) {
-            const long long j = (long long)jlo + off + i;
-            if (j >= n_store_rows) break;
-            found |= probe_row(cstore + j * kRowWords, doc, &tf_probe);
-          }
-        }
-        const bool own = lcl == t;
-        const bool present = found || own;
-        const float tf = (float)(own ? tf_own : tf_probe);
-        const int kind = s_kind[t];
-        const float contrib =
-            __fmul_rn(s_weight[t], __fdiv_rn(tf, __fadd_rn(tf, cachev)));
-        const bool positive = present && (kind == kMust || kind == kShould);
-        score = __fadd_rn(score, positive ? contrib : 0.0f);
-        cnt_must += (present && kind == kMust) ? 1 : 0;
-        cnt_should += (present && kind == kShould) ? 1 : 0;
-        has_not = has_not || (present && kind == kMustNot);
-        if (present && s_ship[t] > 0 && primary > kTMax) primary = t;
+    float score = 0.0f;
+    int cnt_must = 0;
+    int cnt_should = 0;
+    bool has_not = false;
+    int primary = kTMax + 1;
+    for (int t = 0; t < T; ++t) {
+      // the member's sub-window, cut at the store's end; the own clause is
+      // present by construction: no probe
+      const int32_t jlo = s_row[4 + t];
+      const int32_t packed = s_row[4 + T + kMembers * t + r];
+      const int len = packed & 255;
+      const long long lo = (long long)jlo + (packed >> 8);
+      bool found = false;
+      int32_t tf_probe = 0;
+      if (t != lcl && jlo >= 0 && len > 0 && lo < n_store_rows) {
+        const long long hi = lo + len;
+        found = tantivy_port::probe_window(
+            cstore, (int)lo, (int)(hi < n_store_rows ? hi : n_store_rows), doc,
+            &tf_probe);
       }
-      const bool ok = lcl <= primary && cnt_must >= need_must &&
-                      cnt_should >= need_should && !has_not;
-      if (ok && score >= th && score != -INFINITY) {
-        const int slot = atomicAdd(&n_sur, 1);
-        c_score[slot] = score;
-        c_flat[slot] = r * kLanes + lane;
-        c_doc[slot] = doc;
-      }
+      const bool own = lcl == t;
+      const bool present = found || own;
+      const float tf = (float)(own ? tf_own : tf_probe);
+      const int kind = s_kind[t];
+      const float contrib =
+          __fmul_rn(s_weight[t], __fdiv_rn(tf, __fadd_rn(tf, cachev)));
+      const bool positive = present && (kind == kMust || kind == kShould);
+      score = __fadd_rn(score, positive ? contrib : 0.0f);
+      cnt_must += (present && kind == kMust) ? 1 : 0;
+      cnt_should += (present && kind == kShould) ? 1 : 0;
+      has_not = has_not || (present && kind == kMustNot);
+      if (present && s_ship[t] > 0 && primary > kTMax) primary = t;
+    }
+    const bool ok = lcl <= primary && cnt_must >= need_must &&
+                    cnt_should >= need_should && !has_not;
+    if (ok && score >= th && score != -INFINITY) {
+      const int slot = atomicAdd(&n_sur, 1);
+      c_score[slot] = score;
+      c_flat[slot] = r * kLanes + lane;
+      c_doc[slot] = doc;
     }
   }
   __syncthreads();
 
-  tantivy_port::write_group_topk(c_score, c_flat, c_doc, n_sur, kk,
-                                 out_scores + (long long)g * kk,
-                                 out_docs + (long long)g * kk);
+  tantivy_port::write_group_topk(c_score, c_flat, c_doc, n_sur, kk, osc,
+                                 odoc, s_topk);
 }
 
 }  // namespace
@@ -182,7 +182,8 @@ extern "C" int group_probe_launch(
     int num_prows, const void* cstore, long long n_store_rows, int kk,
     void* out_scores, void* out_docs, void* stream) {
   if (n_clauses < 1 || n_clauses > kTMax || stride > kMaxStride ||
-      stride < 4 + (1 + kMembers) * n_clauses || kk < 1 || kk > kLanes) {
+      stride < 4 + (1 + kMembers) * n_clauses || kk < 1 || kk > kLanes ||
+      n_store_rows > 0x7fffffffLL || ((uintptr_t)cstore & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_groups > 0) {
@@ -194,4 +195,17 @@ extern "C" int group_probe_launch(
         n_store_rows, kk, (float*)out_scores, (int32_t*)out_docs);
   }
   return (int)cudaGetLastError();
+}
+
+// Threads, static shared memory per CTA and CTAs resident per SM of the
+// kernel on the current device; returns a CUDA error code.
+extern "C" int group_probe_occupancy(int* threads, int* smem_bytes,
+                                     int* ctas_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, group_probe_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *threads = kLanes;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, group_probe_kernel, kLanes, 0);
 }

@@ -86,6 +86,8 @@ constexpr int kMaxPartners = 7;
 constexpr int kMaxStride = 256;
 // bytes of dynamic shared memory that the two member buffers take
 constexpr int kBufferBytes = 12 * 1024;
+static_assert(sizeof(tantivy_port::TopkScratch) <= kBufferBytes,
+              "the top-kk scratch outgrows the member buffers");
 
 // Positions (of 4-aligned chunks) one buffer holds per partner, for S
 // partners: each buffer holds the lane docs and cachev (256 words) and S
@@ -505,9 +507,12 @@ __global__ void __launch_bounds__(kThreads) phrase_probe_kernel(
   }
   __syncthreads();
 
-  tantivy_port::write_group_topk(c_score, c_flat, c_doc, n_sur, kk,
-                                 out_scores + (long long)g * kk,
-                                 out_docs + (long long)g * kk);
+  // the member buffers, every copy into them done, lend the top-kk its
+  // scratch
+  tantivy_port::write_group_topk(
+      c_score, c_flat, c_doc, n_sur, kk, out_scores + (long long)g * kk,
+      out_docs + (long long)g * kk,
+      *reinterpret_cast<tantivy_port::TopkScratch*>(smem));
 }
 
 // One launch for S partners: the kernel is compiled per partner count, so
@@ -563,5 +568,37 @@ extern "C" int phrase_probe_launch(
     PHRASE_PROBE_LAUNCH(7)
   }
 #undef PHRASE_PROBE_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <int S>
+int occupancy(int* threads, int* smem_bytes, int* ctas_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, phrase_probe_kernel<S>);
+  if (err != cudaSuccess) return (int)err;
+  *threads = kThreads;
+  *smem_bytes = (int)(attr.sharedSizeBytes + dynamic_smem(S));
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, phrase_probe_kernel<S>, kThreads, dynamic_smem(S));
+}
+
+}  // namespace
+
+// Threads, shared memory per CTA (static and dynamic) and CTAs resident per
+// SM of the kernel for `n_partners` on the current device; returns a CUDA
+// error code.
+extern "C" int phrase_probe_occupancy(int n_partners, int* threads,
+                                      int* smem_bytes, int* ctas_per_sm) {
+  switch (n_partners) {
+    case 1: return occupancy<1>(threads, smem_bytes, ctas_per_sm);
+    case 2: return occupancy<2>(threads, smem_bytes, ctas_per_sm);
+    case 3: return occupancy<3>(threads, smem_bytes, ctas_per_sm);
+    case 4: return occupancy<4>(threads, smem_bytes, ctas_per_sm);
+    case 5: return occupancy<5>(threads, smem_bytes, ctas_per_sm);
+    case 6: return occupancy<6>(threads, smem_bytes, ctas_per_sm);
+    case 7: return occupancy<7>(threads, smem_bytes, ctas_per_sm);
+  }
   return (int)cudaErrorInvalidValue;
 }

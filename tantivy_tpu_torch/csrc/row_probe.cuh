@@ -1,0 +1,84 @@
+// The probe shared by the port's boolean probe kernels (K1 and K3): is a
+// lane's doc in a window of cstore rows of one term region, and with what
+// tf?
+//
+// Precondition (checked where the fused store is built, and the callers
+// clip every window to its region): inside a region docs ascend strictly
+// across rows, apart from TERMINATED padding after the last doc, and every
+// row holds a doc. So a doc can lie in at most one window row, the last one
+// whose first doc (its fence) is <= it, and a search over the fences, then
+// one search in the row found, settles the probe; its tf is the sum the TPU
+// kernels' equality compares take.
+//
+// The cost on an H100 is the latency of dependent loads, so both searches
+// are 4-ary: each step loads 3 pivots at once and keeps the quarter that
+// holds the doc. A window of n rows takes ceil(log4(n)) fence steps; a row
+// of 128 docs takes 3 steps (32-doc block, 8-doc octet, then the octet's
+// docs and tfs as four 16-byte loads) instead of the 8 of a binary search.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace tantivy_port {
+
+constexpr int kProbeRowWords = 384;  // docs | tfs | bitcast(cachev)
+constexpr int kProbeLanes = 128;
+
+// Probes doc in the rows [a, b) of one region, a < b: returns whether it is
+// there and sets *tf to its tf (0 when absent).
+__device__ __forceinline__ bool probe_window(
+    const int32_t* __restrict__ cstore, int a, int b, int32_t doc,
+    int32_t* tf) {
+  // the row: the last of the window whose fence is <= doc, else the first;
+  // each step keeps a quarter, ceil(log4(b - a)) steps
+  int row = a;
+  int n = b - a;
+  while (n > 1) {
+    const int q = (n + 3) >> 2;
+    int k = 0;
+#pragma unroll
+    for (int i = 1; i <= 3; ++i) {
+      if (i * q < n) {
+        k += __ldg(cstore + (long long)(row + i * q) * kProbeRowWords) <= doc
+                 ? 1
+                 : 0;
+      }
+    }
+    row += k * q;
+    n = min(q, n - k * q);
+  }
+  // the doc's lower bound among the row's 128 ascending docs: its 32-doc
+  // block, then its 8-doc octet, then the octet itself
+  const int32_t* docs = cstore + (long long)row * kProbeRowWords;
+  int base = 0;
+#pragma unroll
+  for (int span = 32; span >= 8; span >>= 2) {
+    int k = 0;
+#pragma unroll
+    for (int i = 1; i <= 3; ++i) {
+      k += __ldg(docs + base + i * span - 1) < doc ? 1 : 0;
+    }
+    base += k * span;
+  }
+  const int4* d4 = reinterpret_cast<const int4*>(docs + base);
+  const int4* t4 = reinterpret_cast<const int4*>(docs + kProbeLanes + base);
+  const int4 d0 = __ldg(d4);
+  const int4 d1 = __ldg(d4 + 1);
+  const int4 t0 = __ldg(t4);
+  const int4 t1 = __ldg(t4 + 1);
+  const int32_t dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+  const int32_t tv[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+  bool hit = false;
+  *tf = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (dv[i] == doc) {
+      hit = true;
+      *tf = tv[i];
+    }
+  }
+  return hit;
+}
+
+}  // namespace tantivy_port

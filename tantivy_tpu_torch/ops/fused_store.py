@@ -116,6 +116,8 @@ class FusedStore:
         key = (seg_ord, field)
         slab = self.slabs.get(key)
         if slab is None:
+            _check_region_order(dfp.blk_base, dfp.blk_last_doc,
+                                dfp.term_block_start, dfp.term_num_blocks)
             cache = compute_tf_cache(np.float32(avg_fieldnorm))
             a = None if alive is None else np.asarray(alive, dtype=bool)
             cstore = build_cstore_np(
@@ -337,6 +339,31 @@ class FusedStore:
         self.num_pos = total
         self.pos_rows = rows_p
         self._pos_dirty = False
+
+
+def _check_region_order(blk_base, blk_last_doc, term_block_start,
+                        term_num_blocks) -> None:
+    """Raise unless, inside every term's region of one slab, each block
+    holds a doc and docs ascend strictly from block to block (blk_base[b]
+    <= blk_last_doc[b] < blk_base[b + 1]). The boolean kernels' fence
+    searches rely on it: a doc can then lie only in the last region row
+    whose first doc is <= it."""
+    base = np.asarray(blk_base, dtype=np.int64)
+    last = np.asarray(blk_last_doc, dtype=np.int64)
+    bad = (base == TERMINATED) | (last < base)
+    # the block index b of every step b -> b + 1 inside a region
+    starts = np.asarray(term_block_start, dtype=np.int64)
+    steps = np.maximum(np.asarray(term_num_blocks, dtype=np.int64) - 1, 0)
+    inner = (np.repeat(starts - np.cumsum(steps) + steps, steps)
+             + np.arange(int(steps.sum())))
+    at_step = inner[last[inner] >= base[inner + 1]]
+    bad[at_step] = True
+    if bad.any():
+        at = int(np.argmax(bad))
+        raise AssertionError(
+            f"block {at}: docs do not ascend strictly across the blocks of "
+            "its term region"
+        )
 
 
 def _check_term_order(positions, owners, term_pos_start) -> None:

@@ -1,0 +1,255 @@
+"""Synthetic launch chunks for the boolean probe kernels K1 (group probe)
+and K3 (windowed probe), made from a seed with numpy: the shapes the real
+launches seldom reach and the kernels' designs find hard. The tests hold the
+plain twins against the reference kernels on them, and the card checks
+(`tests/test_torch_*_probe.py`, `chip_smoke.py`) hold the CUDA kernels
+against the twins.
+
+Every store is built like the fused store's (`build_cstore_np`): term
+regions of sorted docs, each starting on an 8-row boundary, tfs of 1 or 2
+and two BM25 denominators, so equal scores straddle every top-kk cut; some
+docs are deleted (NaN denominators). Inside a region docs ascend strictly
+across rows, with TERMINATED padding after the last doc, as the kernels'
+fence searches require. Chunks are padded to 64 items (fully masked groups,
+or items of qid = num_queries), a multiple of every reference grid step.
+
+K1 kinds (`group_case`):
+* "ties": phase 1 (no threshold), every group has all 8 members live and
+  every lane reporting: 1,024 survivors whose scores tie across the cut;
+* "t16": 16 clauses, all 8 members live, every clause (the own one too)
+  probed by every member, a finite row threshold;
+* "wide": member sub-windows whose union spans more than 16 rows, so
+  probes take several fence steps (rung kw = 64);
+* "oversized": 255-row sub-windows whose union spans more than 256 rows,
+  the kernel's longest fence searches; no reference rung reaches it, so
+  only the twin defines it.
+K3 kinds (`bool_case`):
+* "every_row": the wide rung (kw = 64) with lane docs in every row of a
+  70-row window, the region's last row included (TERMINATED padding);
+* "store_end": windows that end at the store's last row (kw = 8 or 64).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..postings.format import TERMINATED
+from .fused_store import build_cstore_np
+
+KIND_MUST, KIND_SHOULD, KIND_MUST_NOT, KIND_ABSENT = 0, 1, 2, 3
+
+GROUP_KINDS = ("ties", "t16", "wide", "oversized")
+BOOL_KINDS = ("every_row", "store_end")
+
+#: items of every synthetic chunk
+CHUNK_W = 64
+_MAX_DOC = 1_000_000
+
+
+def _store(regions, rng, dead: float):
+    """[NB, 384] u32 store holding each sorted doc array of `regions` as one
+    term region starting on an 8-row boundary; returns (cstore, region
+    starts, region lengths in rows)."""
+    docs, tfs, starts, lens = [], [], [], []
+    at = 0
+    for d in regions:
+        gap = (-at) % 8
+        if gap:
+            docs.append(np.full((gap, 128), TERMINATED, np.uint32))
+            tfs.append(np.ones((gap, 128), np.uint32))
+            at += gap
+        nb = -(-len(d) // 128)
+        block = np.full(nb * 128, TERMINATED, np.uint32)
+        block[:len(d)] = d
+        docs.append(block.reshape(nb, 128))
+        tfs.append(rng.integers(1, 3, (nb, 128)).astype(np.uint32))
+        starts.append(at)
+        lens.append(nb)
+        at += nb
+    norm_ids = rng.integers(0, 2, _MAX_DOC).astype(np.uint8)
+    alive = rng.random(_MAX_DOC) >= dead
+    cache = np.resize(np.array([1.25, 2.5], np.float32), 256)
+    cstore = build_cstore_np(np.concatenate(docs), np.concatenate(tfs),
+                             norm_ids, alive, cache)
+    return cstore, np.array(starts), np.array(lens)
+
+
+def _sorted_docs(rng, n: int, pool=None) -> np.ndarray:
+    pool = _MAX_DOC if pool is None else pool
+    return np.sort(rng.choice(pool, n, replace=False)).astype(np.uint32)
+
+
+def _partner(rng, n: int, lane) -> np.ndarray:
+    """n sorted docs, half of them lane docs, so that probes find some."""
+    own = rng.choice(lane, min(n // 2, len(lane)), replace=False)
+    rest = np.setdiff1d(np.arange(_MAX_DOC, dtype=np.uint32), own)
+    more = rng.choice(rest, n - len(own), replace=False)
+    return np.sort(np.concatenate([own, more])).astype(np.uint32)
+
+
+def _first_last(cstore, lo: int, hi: int):
+    """First and last real doc of store rows [lo, hi)."""
+    d = cstore[lo:hi, :128].astype(np.int64)
+    return d[:, 0], np.where(d != TERMINATED, d, -1).max(axis=1)
+
+
+def _stride(slots: int) -> int:
+    stride = 8
+    while stride < slots:
+        stride *= 2
+    return stride
+
+
+def group_case(kind: str, seed: int = 0) -> dict:
+    """One K1 launch chunk of `kind` (see the module note): `rows` [64,
+    STRIDE] i32, `tables` (cl_weight, cl_kind, cl_shipped, req_must,
+    req_should, row_th), the reference's `cl_start`/`cl_len` (which K1 does
+    not read), `cstore` [NB, 384] u32, `num_prows`, `T` and the reference
+    rung `kw` whose window holds every sub-window (None for
+    "oversized")."""
+    rng = np.random.default_rng(1000 + 17 * seed + GROUP_KINDS.index(kind))
+    T = 16 if kind == "t16" else 2
+    n_groups = {"ties": 4, "t16": 4, "wide": 8, "oversized": 2}[kind]
+    kw = {"ties": 16, "t16": 32, "wide": 64, "oversized": None}[kind]
+    n_lane = n_groups * 8 * 128
+    if kind == "oversized":
+        # member r of group g meets partner rows [a, a + 255), a = 600g +
+        # 40r; its docs come from the last 40 of them (half hits), so
+        # members ascend and every lane's row is far into its sub-window
+        partner = _sorted_docs(rng, 1400 * 128)
+        p_rows = partner.reshape(-1, 128)
+        lane = []
+        for g in range(n_groups):
+            for r in range(8):
+                b = 600 * g + 40 * r + 255
+                pool = p_rows[b - 40:b].reshape(-1)
+                hits = rng.choice(pool, 64, replace=False)
+                span = np.arange(int(pool[0]), int(pool[-1]))
+                miss = rng.choice(np.setdiff1d(span, pool), 64,
+                                  replace=False)
+                lane.append(np.sort(np.concatenate([hits, miss])))
+        lane = np.concatenate(lane).astype(np.uint32)
+        partners = [partner]
+    else:
+        lane = _sorted_docs(rng, n_lane)
+        if kind == "ties":
+            partners = [_partner(rng, n_lane, lane)]
+        elif kind == "t16":
+            partners = [_partner(rng, int(n_lane * f), lane)
+                        for f in rng.uniform(0.3, 1.2, T - 1)]
+        else:  # a partner 6x as dense: about 6 rows a member
+            partners = [_partner(rng, 6 * n_lane, lane)]
+    cstore, rstart, rlen = _store([lane] + partners, rng,
+                                  dead=0.0 if kind == "ties" else 0.05)
+    A = 4 + T
+    rows = np.zeros((CHUNK_W, _stride(4 + 9 * T)), np.int32)
+    rows[:, 1] = 1  # padding groups: mask 0, prow = num_prows
+    rows[:, 4:4 + T] = -1
+    for g in range(n_groups):
+        base = int(rstart[0]) + 8 * g
+        rows[g, :4] = (base, 0, 0, 0xFF)
+        first, last = _first_last(cstore, base, base + 8)
+        for t in range(1, T):
+            s, n = int(rstart[t]), int(rlen[t])
+            if kind == "oversized":
+                a = s + 600 * g + 40 * np.arange(8)
+                b = a + 255
+            else:
+                # member r's sub-window: the partner rows its docs meet
+                pf, pl = _first_last(cstore, s, s + n)
+                a = s + np.searchsorted(pl, first)
+                b = s + np.searchsorted(pf, last, side="right")
+            b = np.clip(b, s + 1, s + n)
+            a = np.clip(a, s, b - 1)
+            jlo = (int(a.min()) // 8) * 8
+            if kw is not None:
+                # as the launch layer does: the rung's window stays inside
+                # the store, and sub-windows end inside the window
+                jlo = min(jlo, ((cstore.shape[0] - kw) // 8) * 8)
+                b = np.minimum(b, jlo + kw)
+            ln = np.maximum(b - a, 0)
+            rows[g, 4 + t] = jlo
+            rows[g, A + 8 * t:A + 8 * t + 8] = np.where(
+                ln > 0, ((a - jlo) << 8) | ln, 0)
+        if kind == "t16":
+            # the own clause is probed too, in the member's own row
+            rows[g, 4] = base
+            rows[g, A:A + 8] = (np.arange(8) << 8) | 1
+    cl_weight = np.zeros((2, T), np.float32)
+    cl_kind = np.full((2, T), KIND_ABSENT, np.int32)
+    cl_shipped = np.zeros((2, T), np.int32)
+    cl_weight[0] = rng.integers(1, 4, T)
+    cl_kind[0] = KIND_SHOULD
+    if kind == "t16":
+        cl_kind[0, 1:] = rng.choice([KIND_MUST, KIND_SHOULD, KIND_MUST_NOT],
+                                    T - 1, p=[0.05, 0.85, 0.1])
+        cl_weight[0, cl_kind[0] == KIND_MUST_NOT] = 0.0
+    cl_shipped[0, 0] = 1
+    req_must = np.array([(cl_kind[0] == KIND_MUST).sum(), 1 << 30], np.int32)
+    req_should = np.array([1, 0], np.int32)
+    row_th = np.full(2, -np.inf, np.float32)
+    if kind == "t16":
+        row_th[0] = 0.1 * float(cl_weight[0].sum())
+    return dict(
+        kind=kind, rows=rows, T=T, kw=kw, num_prows=1, n_groups=n_groups,
+        tables=(cl_weight, cl_kind, cl_shipped, req_must, req_should, row_th),
+        cl_start=np.zeros((2, T), np.int32), cl_len=np.zeros((2, T), np.int32),
+        cstore=cstore,
+    )
+
+
+def bool_case(kind: str, kw: int = 64, seed: int = 0) -> dict:
+    """One K3 launch chunk of `kind` at rung `kw` (see the module note):
+    `rows` [64, STRIDE] i32 (items past the real ones have qid =
+    num_queries), `tables` (cl_weight, cl_kind, cl_start, cl_len,
+    cl_shipped, req_must, req_should), `cstore` [NB, 384] u32, `kw`, `T`
+    and `num_queries`. Query q's own clause is item q's row, a one-row
+    region; its partner clause is one region shared by every query, the
+    store's last."""
+    rng = np.random.default_rng(2000 + 17 * seed + BOOL_KINDS.index(kind)
+                                + kw)
+    T, Q = 2, 12
+    kw8 = ((kw + 7) & ~7) + 8 if kw > 8 else max((kw + 7) & ~7, 8)
+    # the partner region; its last row is partly padding
+    n_rows = 70 if kind == "every_row" else 80
+    partner = _sorted_docs(rng, n_rows * 128 - 77)
+    p_rows = [partner[128 * r:128 * (r + 1)] for r in range(n_rows)]
+    win0 = 0 if kind == "every_row" else n_rows - kw8
+    others = np.setdiff1d(np.arange(_MAX_DOC, dtype=np.uint32), partner)
+    items = []
+    for _ in range(Q):
+        # a doc of every window row (the region's last doc among them),
+        # the rest docs that no partner row holds
+        picks = [p_rows[r][rng.integers(0, len(p_rows[r]))]
+                 for r in range(win0, n_rows - 1)] + [partner[-1]]
+        miss = rng.choice(others, 128 - len(picks), replace=False)
+        items.append(np.sort(np.concatenate([np.array(picks, np.uint32),
+                                             miss])))
+    cstore, rstart, rlen = _store(items + [partner], rng, dead=0.1)
+    nb = cstore.shape[0]
+    cl_weight = np.zeros((Q + 1, T), np.float32)
+    cl_kind = np.full((Q + 1, T), KIND_ABSENT, np.int32)
+    cl_start = np.zeros((Q + 1, T), np.int32)
+    cl_len = np.zeros((Q + 1, T), np.int32)
+    cl_shipped = np.zeros((Q + 1, T), np.int32)
+    req_must = np.zeros(Q + 1, np.int32)
+    req_should = np.zeros(Q + 1, np.int32)
+    req_must[Q] = 1 << 30
+    rows = np.zeros((CHUNK_W, _stride(3 + 2 * T)), np.int32)
+    rows[:, 1] = Q
+    rows[:, 3:3 + T] = -1
+    for q in range(Q):
+        cl_start[q] = (rstart[q], rstart[-1])
+        cl_len[q] = (rlen[q], rlen[-1])
+        cl_kind[q] = (KIND_SHOULD, KIND_MUST if q % 3 == 0 else KIND_SHOULD)
+        cl_weight[q] = rng.integers(1, 4, T)
+        cl_shipped[q, 0] = 1
+        req_must[q] = int((cl_kind[q] == KIND_MUST).sum())
+        req_should[q] = 0 if req_must[q] else 1
+        rows[q, :3] = (rstart[q], q, 0)
+        rows[q, 4] = rstart[-1] if kind == "every_row" else nb - kw8
+        rows[q, 3 + T:3 + 2 * T] = kw8
+    return dict(kind=kind, rows=rows, T=T, kw=kw, num_queries=Q,
+                tables=(cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
+                        req_must, req_should),
+                cstore=cstore)

@@ -26,7 +26,14 @@ from tantivy_tpu.ops import probe_scorer as ref_ps
 from tantivy_tpu.ops.fused_store import build_cstore_np
 from tantivy_tpu.postings.format import TERMINATED
 from tantivy_tpu_torch.ops import bool_probe as bp
+from tantivy_tpu_torch.ops import kernel_cases as kc
 from tantivy_tpu_torch.ops import probe_scorer as ps
+from tantivy_tpu_torch.ops.fused_store import FusedStore, _check_region_order
+
+import zstd_stub
+from test_device_phrase import build_phrase_index
+from test_fused_bool import build_zipf_index
+from test_torch_host_parity import port_searcher
 
 Q = 6
 #: blocks per term region: rare terms against dense partners
@@ -328,3 +335,149 @@ def test_kernel_matches_twin_on_card(cases, cuda_device, kw, T):
         assert torch.equal(got[0].view(torch.int32),
                            want[0].view(torch.int32))
         assert torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# synthetic hard cases (`ops/kernel_cases.py`): the twin against the Pallas
+# kernel on the CPU, the kernel against the twin on the card
+
+HARD = [("every_row", 64), ("store_end", 8), ("store_end", 64)]
+
+
+def _hard_args(case, device="cpu"):
+    rows = torch.from_numpy(case["rows"]).to(device)
+    tables = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in case["tables"])
+    cstore = torch.from_numpy(case["cstore"].view(np.int32)).to(device)
+    return rows, tables, cstore
+
+
+@pytest.mark.parametrize("kind,kw", HARD)
+def test_twin_lanes_match_pallas_kernel_on_hard_cases(kind, kw):
+    case = kc.bool_case(kind, kw)
+    T, W, Qn = case["T"], case["rows"].shape[0], case["num_queries"]
+    G = pp._g_items(kw, T)
+    stride, _, R = pp._bool_scal_layout(T, G)
+    scal = np.pad(case["rows"][:, :stride].reshape(W // G, G * stride),
+                  ((0, 0), (0, R * 128 - G * stride))).reshape(W // G, R, 128)
+    want_sc, want_dc = _probe_rows(
+        jnp.asarray(scal), *case["tables"], jnp.asarray(case["cstore"]),
+        n_clauses=T, kw=kw, num_prows=Qn, G=G, W=W,
+    )
+    rows, tables, cstore = _hard_args(case)
+    got_sc, got_dc = bp.bool_probe_lanes(rows, *tables, cstore, kw=kw,
+                                         num_queries=Qn)
+    assert np.array_equal(got_sc.numpy().view(np.int32),
+                          np.asarray(want_sc).view(np.int32))
+    assert np.array_equal(got_dc.numpy().view(np.uint32), np.asarray(want_dc))
+    # the case holds what it claims: the window's rows, the region's last
+    # (padded) one among them, each hold a doc of every item; dead lanes
+    st = case["cstore"]
+    docs = st[:, :128]
+    start, n = case["tables"][2][0, 1], case["tables"][3][0, 1]
+    j = case["rows"][0, 4]
+    win = np.arange(max(j, start), min(j + bp._kw8(kw), start + n))
+    assert win[-1] == start + n - 1 and (docs[win[-1]] == TERMINATED).any()
+    if kind == "store_end":
+        assert win[-1] == st.shape[0] - 1
+    for q in range(Qn):
+        own = docs[case["rows"][q, 0]]
+        assert all(np.isin(docs[r], own).any() for r in win)
+    assert np.isnan(st[case["rows"][:Qn, 0], 256:].view(np.float32)).any()
+    reported = np.isfinite(np.asarray(want_sc))
+    assert reported.sum() > 10 * Qn and not reported[Qn:].any()
+
+
+@pytest.mark.parametrize("kk", [1, 10, 128])
+@pytest.mark.parametrize("kind,kw", HARD)
+def test_row_topk_orders_ties_on_hard_cases(kind, kw, kk):
+    """The twin's row top-kk is (score desc, lane asc), the order
+    `lax.top_k` gives the Pallas kernel's raw rows, at cuts through runs of
+    equal scores."""
+    case = kc.bool_case(kind, kw)
+    rows, tables, cstore = _hard_args(case)
+    Qn = case["num_queries"]
+    lanes, docs = bp.bool_probe_lanes(rows, *tables, cstore, kw=kw,
+                                      num_queries=Qn)
+    sc, dc = bp.bool_probe_ref(rows, *tables, cstore, kw=kw,
+                               num_queries=Qn, kk=kk)
+    order = torch.sort(lanes, dim=1, descending=True, stable=True)
+    want_sc = order.values[:, :kk]
+    want_dc = torch.where(torch.isfinite(want_sc),
+                          docs.gather(1, order.indices[:, :kk]), TERMINATED)
+    assert torch.equal(sc.view(torch.int32), want_sc.view(torch.int32))
+    assert torch.equal(dc, want_dc)
+    if kk < 128:
+        s = order.values[:Qn]
+        assert (s[:, kk - 1] == s[:, kk]).any(), "no cut splits a tie"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [1, 10, 128])
+@pytest.mark.parametrize("kind,kw", HARD)
+def test_kernel_matches_twin_on_hard_cases(cuda_device, kind, kw, kk):
+    case = kc.bool_case(kind, kw)
+    rows, tables, cstore = _hard_args(case, cuda_device)
+    args = dict(kw=kw, num_queries=case["num_queries"], kk=kk)
+    got = bp.bool_probe(rows, *tables, cstore, **args)
+    want = bp.bool_probe_ref(rows, *tables, cstore, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the store's order check: the kernels' fence searches need docs to ascend
+# strictly across the rows of each term region
+
+
+class _Blocks:
+    """The block tables `FusedStore.ensure_slab` checks first."""
+
+    def __init__(self, base, last, starts, lens):
+        self.blk_base = np.array(base, np.uint32)
+        self.blk_last_doc = np.array(last, np.uint32)
+        self.term_block_start = np.array(starts, np.int64)
+        self.term_num_blocks = np.array(lens, np.int64)
+
+
+@pytest.mark.parametrize("case,ok", [
+    # two regions of two blocks; the second restarts the doc order
+    (([0, 200, 5, 90], [150, 300, 80, 120], [0, 2], [2, 2]), True),
+    # a doc repeated across two rows of one region
+    (([0, 150, 5, 90], [150, 300, 80, 120], [0, 2], [2, 2]), False),
+    # rows out of order inside a region
+    (([0, 200, 5, 90], [150, 300, 80, 120], [0, 3], [3, 1]), False),
+    # an empty row inside a region
+    (([0, TERMINATED, 5], [150, TERMINATED, 80], [0, 2], [2, 1]), False),
+])
+def test_store_order_check(case, ok):
+    if ok:
+        _check_region_order(*case)
+        return
+    with pytest.raises(AssertionError, match="ascend strictly"):
+        _check_region_order(*case)
+    # the store checks a slab before it builds it
+    with pytest.raises(AssertionError, match="ascend strictly"):
+        FusedStore().ensure_slab(0, "body", _Blocks(*case), None, 1.0)
+
+
+@pytest.mark.parametrize("fixture", ["zipf", "phrase"])
+def test_fixture_stores_pass_the_order_check(fixture):
+    """Every (segment, field) slab of the fixture indexes builds."""
+    with pytest.MonkeyPatch.context() as mp:
+        zstd_stub.use(mp)
+        if fixture == "zipf":
+            (index, _), fields = build_zipf_index(), ("body", "title")
+        else:
+            index, fields = build_phrase_index()[0], ("body",)
+        searcher = port_searcher(index)
+        store = FusedStore("cpu")
+        n = 0
+        for seg_ord, reader in enumerate(searcher.segment_readers()):
+            dseg = reader.device()
+            for field in fields:
+                store.ensure_slab(seg_ord, field, dseg.field_postings(field),
+                                  dseg.alive_np, 1.0)
+                n += 1
+        assert n >= 2

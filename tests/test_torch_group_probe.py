@@ -18,9 +18,11 @@ import tantivy_tpu as tt
 from tantivy_tpu.ops import pallas_probe as pp
 from tantivy_tpu.parallel import BatchExecutor as JaxBatchExecutor
 from tantivy_tpu_torch.ops import fused_bool as fb
+from tantivy_tpu_torch.ops import kernel_cases as kc
 from tantivy_tpu_torch.ops.group_probe import group_probe, group_probe_ref
 
 import zstd_stub
+from tantivy_tpu.postings.format import TERMINATED
 from test_fused_bool import build_zipf_index
 
 
@@ -215,6 +217,119 @@ def test_kernel_matches_twin_on_card(launches, cuda_device, case):
         torch.cuda.synchronize()
         assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
         assert torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# synthetic hard cases (`ops/kernel_cases.py`): the twin against the Pallas
+# kernel on the CPU, the kernel against the twin on the card
+
+
+def _synthetic_args(case, device="cpu"):
+    rows = torch.from_numpy(case["rows"]).to(device)
+    tables = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in case["tables"])
+    cstore = torch.from_numpy(case["cstore"].view(np.int32)).to(device)
+    return rows, tables, cstore
+
+
+def _pages_of(rows, T, G):
+    """[W, STRIDE] scalar rows -> the reference's [P, R, 128] pages."""
+    stride, _, R = pp._grp_scal_layout(T, G)
+    W = rows.shape[0]
+    flat = rows[:, :stride].reshape(W // G, G * stride)
+    return np.pad(flat, ((0, 0), (0, R * 128 - G * stride))).reshape(
+        W // G, R, 128)
+
+
+def _windows(case):
+    """Per live group and clause: the union [lo, hi) of its members'
+    sub-windows, relative to jlo, and whether every member probes it."""
+    T, A = case["T"], 4 + case["T"]
+    out = []
+    for row in case["rows"][:case["n_groups"]]:
+        for t in range(T):
+            pk = row[A + 8 * t:A + 8 * t + 8]
+            ln, off = pk & 255, pk >> 8
+            if row[4 + t] >= 0 and (ln > 0).any():
+                out.append((int(off[ln > 0].min()), int((off + ln).max()),
+                            bool((ln > 0).all())))
+    return out
+
+
+@pytest.mark.parametrize("kind", kc.GROUP_KINDS)
+def test_synthetic_group_cases_reach_what_they_claim(kind):
+    case = kc.group_case(kind)
+    rows, cstore = case["rows"], case["cstore"]
+    live = rows[:case["n_groups"]]
+    assert (live[:, 3] == 0xFF).all() and (rows[case["n_groups"]:, 3] == 0).all()
+    members = cstore[(live[:, :1] + np.arange(8)).reshape(-1)]
+    wins = _windows(case)
+    spans = [hi - lo for lo, hi, _ in wins]
+    if kind == "ties":
+        # every lane of every member is alive: 1,024 survivors a group
+        assert (members[:, :128] != TERMINATED).all()
+        assert not np.isnan(members[:, 256:].view(np.float32)).any()
+    elif kind == "t16":
+        assert case["T"] == 16 and len(wins) == 16 * case["n_groups"]
+        assert all(every for _, _, every in wins)
+        assert np.isfinite(case["tables"][5][0])
+    elif kind == "wide":
+        assert max(spans) > 16 and max(hi for _, hi, _ in wins) <= 64
+    else:
+        assert max(spans) > 256 and (live[:, 4 + 1] >= 0).all()
+    sc, _ = group_probe_ref(*_flat(_synthetic_args(case)),
+                            num_prows=case["num_prows"], kk=128)
+    assert torch.isfinite(sc).sum() >= 20 * case["n_groups"]
+
+
+def _flat(args):
+    rows, tables, cstore = args
+    return (rows, *tables, cstore)
+
+
+#: (kind, kk) of the twin-vs-Pallas checks: the tie order at three cuts
+SYNTH = [("ties", 1), ("ties", 10), ("ties", 128), ("t16", 10),
+         ("wide", 10)]
+
+
+@pytest.mark.parametrize("kind,kk", SYNTH)
+def test_twin_matches_pallas_kernel_on_synthetic_chunks(kind, kk):
+    case = kc.group_case(kind)
+    T, kw = case["T"], case["kw"]
+    G = pp._g_items_grp(kw, T)
+    cl_weight, cl_kind, cl_shipped, req_m, req_s, row_th = case["tables"]
+    want_sc, want_dc = _grp_rows(
+        _pages_of(case["rows"], T, G), cl_weight, cl_kind, case["cl_start"],
+        case["cl_len"], cl_shipped, req_m, req_s, row_th, case["cstore"],
+        n_clauses=T, kw=kw, num_prows=case["num_prows"], G=G,
+        W=case["rows"].shape[0], kk=kk,
+    )
+    want_sc = np.asarray(want_sc)[:, :kk]
+    want_dc = np.asarray(want_dc)[:, :kk]
+    got_sc, got_dc = group_probe_ref(*_flat(_synthetic_args(case)),
+                                     num_prows=case["num_prows"], kk=kk)
+    assert np.array_equal(got_sc.numpy().view(np.int32),
+                          want_sc.view(np.int32))
+    assert np.array_equal(got_dc.numpy().view(np.uint32), want_dc)
+    if kind == "ties":
+        # the cut splits a run of equal scores in every live group
+        full, _ = group_probe_ref(*_flat(_synthetic_args(case)),
+                                  num_prows=case["num_prows"], kk=kk + 1)
+        assert (full[:case["n_groups"], kk - 1]
+                == full[:case["n_groups"], kk]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [1, 10, 128])
+@pytest.mark.parametrize("kind", kc.GROUP_KINDS)
+def test_kernel_matches_twin_on_synthetic_chunks(cuda_device, kind, kk):
+    case = kc.group_case(kind)
+    args = _flat(_synthetic_args(case, cuda_device))
+    got = group_probe(*args, num_prows=case["num_prows"], kk=kk)
+    want = group_probe_ref(*args, num_prows=case["num_prows"], kk=kk)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
 
 
 # ---------------------------------------------------------------------------
