@@ -31,6 +31,26 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    plans, then the phase's peak device memory;
 6. exactness: sampled queries of every suite of both paths must give the
    host engine's hits (DocAddresses, order and f32 score bits);
+6a. pipelined: `executor.search_batches(..., pipeline=PIPELINE)` over the
+   timed batches of every main-path suite (all of them in flight, each on
+   its own CUDA stream), with the launch counters reset just before and read just after;
+   the results must equal the closed-loop results list for list; prints
+   both QPS figures and the p50 of `batch_spans`;
+6b. term batches: `executor.search_term_batch` (the flat scorer, plain
+   torch over the fused store) on the term log, one warm and TIMED_BATCHES
+   timed batches; sampled hits must equal the host engine's; prints QPS,
+   p50 and the flat scorer's device ms over one batch's calls (CUDA
+   events);
+6c. sharded: `ShardedSearcher(searcher, [cuda:0, cuda:0])` (two segments a
+   shard) over the term, AND, OR and phrase logs, with the counters reset
+   just before and read just after; hits must equal the single executor's;
+   prints QPS and peak device memory;
+6d. warmer, count and agg, on a side index of SIDE_DOCS docs with the
+   bench's fast fields: a `DeviceSearchWarmer` warms a reader, `for_searcher`
+   must return its executor and the first batch must answer (counters reset
+   just before it); `count_batch` of BATCH range queries must equal the
+   host `Count` of each, and `agg_batch` of the bench's aggregation
+   requests one `AggregationCollector` each; prints the ms of each;
 7. kernel vs twin: real launch chunks captured from both paths (group
    probe: phase 1 and phase 2 with thresholds, clause buckets 2 and 4;
    phrase probe: phase 1 and phase 2, partner buckets 1 and 3, both slab
@@ -60,7 +80,9 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    per-layer breakdown (host span ms, device ms per kernel, idle share)
    goes to PATH as JSON.
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON record. The script imports nothing of `tantivy_tpu` or
+the per-kernel JSON record, whose `launches_by_path` gives each kernel's
+launches on every path above that resets the counters (main, probe,
+pipelined, term_batch, sharded, warmer). The script imports nothing of `tantivy_tpu` or
 jax: the port stands alone.
 """
 
@@ -76,7 +98,10 @@ import numpy as np
 
 BATCH = 256
 K = 10
-TIMED_BATCHES = 3
+#: timed batches per suite (and batches the pipelined pass keeps in
+#: flight): 2 keeps the whole smoke near 8 minutes at 1M docs, where the
+#: phrase-prefix suite alone takes about 18 s a batch
+TIMED_BATCHES = 2
 EXACT_SAMPLE = 64
 VOCAB = 30_000
 STREAM_TOKENS = 400_000
@@ -97,6 +122,38 @@ HBM_BYTES_PER_S = 3.35e12
 #: why no library call stands beside the kernels
 NO_LIBRARY = ("no single PyTorch call computes a sorted-set probe, BM25 "
               "scoring and a per-group top-kk over these stores")
+#: batches in flight in the pipelined pass
+PIPELINE = 3
+#: the suites the sharded pass runs, and its devices (one card: two shards
+#: on it, two segments each)
+SHARD_SUITES = ("term", "and", "or", "phrase")
+SHARD_DEVICES = ("cuda:0", "cuda:0")
+#: docs of the side index with the bench's fast fields (count, agg, warmer)
+SIDE_DOCS = 200_000
+#: the bench's aggregation requests (`bench.py` AGG_REQUESTS)
+AGG_REQUESTS = {
+    "avg_u64": {"a": {"avg": {"field": "score"}}},
+    "stats_f64": {"s": {"stats": {"field": "score_f64"}}},
+    "percentiles_f64": {
+        "p": {"percentiles": {"field": "score_f64",
+                              "percents": [95, 99, 99.9]}}
+    },
+    "histogram": {"h": {"histogram": {"field": "score", "interval": 10.0}}},
+    "terms_1000": {"t": {"terms": {"field": "score", "size": 100}}},
+    "range_with_avg": {
+        "r": {
+            "range": {"field": "score",
+                      "ranges": [{"to": 100.0},
+                                 {"from": 100.0, "to": 500.0},
+                                 {"from": 500.0}]},
+            "aggs": {"a": {"avg": {"field": "score_f64"}}},
+        }
+    },
+    "composite": {
+        "c": {"composite": {"size": 100,
+                            "sources": [{"s": {"terms": {"field": "score"}}}]}}
+    },
+}
 
 
 def gpu_line() -> str:
@@ -439,6 +496,220 @@ def check_exact(searcher, answered, seed: int) -> None:
         print(f"exact {suite}: {len(pick)} queries, {n_hits} hits equal "
               f"to the host engine ({time.perf_counter() - t0:.1f} s on the "
               f"host engine)")
+
+
+def _same_hits(got, want) -> bool:
+    return bits(got) == bits(want)
+
+
+def timed_batch_lists(qlog) -> list:
+    """The TIMED_BATCHES batches `timed_batches` runs, one list each."""
+    return [qlog[b * BATCH:(b + 1) * BATCH]
+            for b in range(1, 1 + TIMED_BATCHES)]
+
+
+def run_pipelined(executor, logs, answered) -> dict:
+    """`search_batches(pipeline=PIPELINE)` over each main-path suite's
+    timed batches (all of them in flight at once); the results must equal the closed-loop
+    results (`answered`) list for list. Returns per-suite QPS and the p50
+    of `batch_spans`."""
+    import torch
+
+    out = {}
+    for suite, qlog in logs.items():
+        batches = timed_batch_lists(qlog)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = executor.search_batches(batches, K, pipeline=PIPELINE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        closed = [hits for _, hits in answered[suite]]
+        flat = [hits for r in res for hits in r]
+        if len(flat) != len(closed) or not all(
+                _same_hits(g, w) for g, w in zip(flat, closed)):
+            raise AssertionError(f"pipelined {suite}: results differ from "
+                                 "the closed-loop results")
+        out[suite] = {"qps": len(flat) / wall,
+                      "p50_ms": float(np.median(executor.batch_spans)) * 1e3}
+    return out
+
+
+def run_term_batches(executor, searcher, logs, seed: int) -> dict:
+    """`search_term_batch` on the term log: one warm batch, then
+    TIMED_BATCHES timed ones; sampled hits must equal the host engine's.
+    The flat scorer's calls of the first timed batch are replayed between
+    CUDA events for its device ms."""
+    import tantivy_tpu_torch as tt
+    from tantivy_tpu_torch.ops.flat_scorer import flat_topk
+
+    terms = [q.term for q in logs["term"]]
+    executor.launch_log = []
+    executor.search_term_batch(terms[:BATCH], K)
+    qps, p50_ms, pairs, batch_log = timed_batches(
+        executor.search_term_batch, terms, executor.launch_log)
+    executor.launch_log = None
+    rng = np.random.default_rng(seed + 5)
+    for i in rng.choice(len(pairs), EXACT_SAMPLE, replace=False):
+        term, dev = pairs[i]
+        host = searcher.search(tt.TermQuery(term), tt.TopDocs(K))
+        if not _same_hits(dev, host):
+            raise AssertionError(f"term batch: device hits differ from the "
+                                 f"host engine for {term!r}:\n device {dev}"
+                                 f"\n host   {host}")
+    calls = [rec["args"] for rec in batch_log if rec["kind"] == "flat"]
+    if not calls:
+        raise AssertionError("the term batch made no flat scorer call")
+    flat_ms = sum(_event_ms(lambda a=a: flat_topk(*a)) for a in calls)
+    return {"qps": qps, "p50_ms": p50_ms, "flat_calls": len(calls),
+            "flat_items": sum(int(a[1].shape[0]) for a in calls),
+            "flat_ms": flat_ms, "sampled": EXACT_SAMPLE}
+
+
+def run_sharded(searcher, logs, answered, devices=SHARD_DEVICES) -> dict:
+    """`ShardedSearcher` over `devices` on the SHARD_SUITES logs: one warm
+    and TIMED_BATCHES timed batches each; hits must equal the single
+    executor's (`answered`)."""
+    from tantivy_tpu_torch.parallel.shard import ShardedSearcher
+
+    t0 = time.perf_counter()
+    sharded = ShardedSearcher(searcher, list(devices))
+    out = {"setup_s": time.perf_counter() - t0, "suites": {}}
+    for suite in SHARD_SUITES:
+        qlog = logs[suite]
+        sharded.search_batch(qlog[:BATCH], K)
+        qps, p50_ms, pairs, _ = timed_batches(sharded.search_batch, qlog, [])
+        single = answered[suite]
+        if not all(_same_hits(g, w) for (_, g), (_, w) in zip(pairs, single)):
+            raise AssertionError(f"sharded {suite}: hits differ from the "
+                                 "single executor's")
+        out["suites"][suite] = {"qps": qps, "p50_ms": p50_ms}
+    out["segments_per_shard"] = [
+        0 if ex is None else len(ex.searcher.segment_readers())
+        for ex in sharded._execs]
+    return out
+
+
+def build_side_index(stream, n_docs: int, seed: int):
+    """`n_docs` windows of the stream with the bench's fast fields (`score`
+    u64 in 0..999, `score_f64` ~ N(100, 30), ascending `ts`), in 2
+    segments."""
+    import tantivy_tpu_torch as tt
+
+    b = tt.Schema.builder()
+    b.add_text_field("body", tt.TEXT)
+    b.add_u64_field("score", tt.FAST)
+    b.add_f64_field("score_f64", tt.FAST)
+    b.add_u64_field("ts", tt.FAST)
+    index = tt.Index.create_in_ram(b.build())
+    w = index.writer(memory_budget=2_000_000_000, num_threads=1,
+                     merge_policy=tt.NoMergePolicy())
+    rng = np.random.default_rng(seed + 6)
+    for i, body in enumerate(corpus(stream, n_docs, seed + 7)):
+        w.add_document(tt.Document(
+            body=body, score=int(rng.integers(0, 1000)),
+            score_f64=float(rng.normal(100.0, 30.0)),
+            ts=i * 10 + int(rng.integers(0, 10)),
+        ))
+        if i + 1 == n_docs // 2:
+            w.commit()
+    w.commit()
+    w.close()
+    return index
+
+
+def range_log(rng, n_queries: int, n_docs: int) -> list:
+    """Range queries at the bench's three selectivity bands (`bench.py`
+    make_range_log): narrow low and high `score` ranges and a `ts` window
+    of about 1%."""
+    import tantivy_tpu_torch as tt
+
+    out = []
+    for i in range(n_queries):
+        band = i % 3
+        if band == 0:
+            lo = int(rng.integers(0, 10))
+            out.append(tt.RangeQuery("score", lower=lo, upper=lo + 9))
+        elif band == 1:
+            lo = int(rng.integers(985, 995))
+            out.append(tt.RangeQuery("score", lower=lo, upper=lo + 5))
+        else:
+            lo = int(rng.integers(0, n_docs * 10))
+            out.append(tt.RangeQuery("ts", lower=lo, upper=lo + n_docs // 10))
+    return out
+
+
+def run_side_index(stream, logs, seed: int, zero_counts,
+                   device="cuda") -> dict:
+    """The warmer, count and agg phases on a side index of SIDE_DOCS docs.
+    The warmed executor's first batch (term queries) is the one run with
+    the counters reset just before it; returns the ms of each phase and
+    the group-probe launches of that batch."""
+    import torch
+
+    import tantivy_tpu_torch as tt
+    from tantivy_tpu_torch.index import ReloadPolicy
+    from tantivy_tpu_torch.ops import group_probe
+    from tantivy_tpu_torch.parallel import BatchExecutor, DeviceSearchWarmer
+
+    out = {}
+    t0 = time.perf_counter()
+    index = build_side_index(stream, SIDE_DOCS, seed)
+    out["index_s"] = time.perf_counter() - t0
+    batch = logs["term"][:BATCH]
+
+    t0 = time.perf_counter()
+    warmer = DeviceSearchWarmer(["body"], queries_hint=batch[:8],
+                                device=device)
+    reader = index.reader(ReloadPolicy.MANUAL, warmers=[warmer])
+    searcher = reader.searcher()
+    torch.cuda.synchronize()
+    out["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    executor = BatchExecutor.for_searcher(searcher, device=device)
+    if executor is not getattr(searcher, "_warm_executor", None):
+        raise AssertionError("for_searcher did not return the warmed "
+                             "executor")
+    zero_counts()
+    t0 = time.perf_counter()
+    res = executor.search_batch(batch, K)
+    torch.cuda.synchronize()
+    out["first_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    out["first_batch_group_probe"] = group_probe.launches
+    if group_probe.launches == 0:
+        raise AssertionError("the warmed executor's first batch launched no "
+                             "group_probe kernel")
+    for q, dev in list(zip(batch, res))[:EXACT_SAMPLE]:
+        if not _same_hits(dev, searcher.search(q, tt.TopDocs(K))):
+            raise AssertionError(f"warmed executor: hits differ from the "
+                                 f"host engine for {q!r}")
+
+    queries = range_log(np.random.default_rng(seed + 8), BATCH, SIDE_DOCS)
+    executor.count_batch(queries)  # the sorted-column caches
+    t0 = time.perf_counter()
+    counts = executor.count_batch(queries)
+    out["count_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = [searcher.search(q, tt.Count()) for q in queries]
+    out["count_host_ms"] = (time.perf_counter() - t0) * 1e3
+    if counts != host:
+        bad = sum(c != h for c, h in zip(counts, host))
+        raise AssertionError(f"count_batch: {bad} counts differ from the "
+                             "host Count")
+    out["count_total"] = int(sum(counts))
+
+    reqs = list(AGG_REQUESTS.values())
+    executor.agg_batch(reqs)  # the per-reader column caches
+    t0 = time.perf_counter()
+    aggs = executor.agg_batch(reqs)
+    out["agg_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = [searcher.search(tt.AllQuery(), tt.AggregationCollector(r))
+            for r in reqs]
+    out["agg_host_ms"] = (time.perf_counter() - t0) * 1e3
+    for name, got, want in zip(AGG_REQUESTS, aggs, host):
+        if json.dumps(got, sort_keys=True) != json.dumps(want, sort_keys=True):
+            raise AssertionError(f"agg_batch {name}: differs from the "
+                                 "AggregationCollector")
+    return out
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -1173,6 +1444,74 @@ def main(argv=None) -> int:
         raise AssertionError("the probe path launched no bool_probe kernel")
 
     check_exact(searcher, {**answered, **probe_answered}, args.seed)
+    by_path = {"main": {"group_probe": launches["group_probe"],
+                        "phrase_probe": launches["phrase_probe"]},
+               "probe": {"bool_probe": launches["bool_probe"]}}
+
+    def read_counts(path: str, needed) -> None:
+        by_path[path] = launch_counts()
+        for name in needed:
+            if by_path[path][name] == 0:
+                raise AssertionError(f"the {path} path launched no {name} "
+                                     "kernel")
+
+    # 6a. the main path again, pipelined
+    zero_counts()
+    pipelined = run_pipelined(executor, logs, answered)
+    read_counts("pipelined", ("group_probe", "phrase_probe"))
+    for suite, pm in pipelined.items():
+        print(f"pipelined {suite}: {pm['qps']:.1f} QPS with "
+              f"{min(PIPELINE, TIMED_BATCHES)} batches in flight "
+              f"(pipeline={PIPELINE}) against {timing[suite]['qps']:.1f} closed "
+              f"loop; p50 of batch_spans {pm['p50_ms']:.1f} ms against "
+              f"{timing[suite]['p50_ms']:.1f} closed loop ({gpu}); results "
+              "equal the closed-loop results")
+    print(f"launches on the pipelined path: {by_path['pipelined']}")
+
+    # 6b. term batches on the flat scorer
+    zero_counts()
+    term_batch = run_term_batches(executor, searcher, logs, args.seed)
+    by_path["term_batch"] = launch_counts()
+    print(f"term batch: {term_batch['qps']:.1f} QPS, p50 "
+          f"{term_batch['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} "
+          f"({gpu}); flat scorer (plain torch, no hand-written kernel) "
+          f"{term_batch['flat_ms']:.3f} ms device time over the "
+          f"{term_batch['flat_calls']} calls ({term_batch['flat_items']} work "
+          f"items) of one batch (CUDA events); {term_batch['sampled']} sampled "
+          f"queries equal to the host engine; launches "
+          f"{by_path['term_batch']}")
+
+    # 6c. sharded
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    sharded = run_sharded(searcher, logs, answered)
+    read_counts("sharded", ("group_probe", "phrase_probe"))
+    for suite, sm in sharded["suites"].items():
+        print(f"sharded {suite}: {sm['qps']:.1f} QPS, p50 "
+              f"{sm['p50_ms']:.1f} ms over {len(SHARD_DEVICES)} shards on "
+              f"{', '.join(SHARD_DEVICES)} ({gpu}); hits equal the single "
+              "executor's")
+    print(f"sharded: segments per shard {sharded['segments_per_shard']}, "
+          f"set-up {sharded['setup_s']:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the single "
+          f"executor's store included); launches {by_path['sharded']}")
+
+    # 6d. warmer, count and agg on the side index
+    side = run_side_index(stream, logs, args.seed, zero_counts)
+    by_path["warmer"] = {"group_probe": side["first_batch_group_probe"]}
+    print(f"side index: {SIDE_DOCS} docs with fast fields in "
+          f"{side['index_s']:.1f} s")
+    print(f"warmer: DeviceSearchWarmer + reader {side['warm_ms']:.1f} ms; "
+          f"for_searcher returned the warmed executor; its first batch "
+          f"{side['first_batch_ms']:.1f} ms with "
+          f"{side['first_batch_group_probe']} group_probe launches ({gpu})")
+    print(f"count_batch: {BATCH} range queries in {side['count_ms']:.3f} ms "
+          f"(host Count, one query at a time: {side['count_host_ms']:.1f} ms)"
+          f"; all equal, {side['count_total']} docs counted")
+    print(f"agg_batch: {len(AGG_REQUESTS)} requests in {side['agg_ms']:.1f} "
+          f"ms (one AggregationCollector each: {side['agg_host_ms']:.1f} ms); "
+          "all equal")
+
     stats = {"group_probe": group_probe_vs_twin(log, baselines),
              "phrase_probe": phrase_probe_vs_twin(log, baselines),
              "bool_probe": bool_probe_vs_twin(probe_log, baselines)}
@@ -1195,6 +1534,8 @@ def main(argv=None) -> int:
         "source": f"tantivy_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
         "launches": launches[name],
+        "launches_by_path": {path: counts.get(name, 0)
+                             for path, counts in by_path.items()},
         **stats[name],
         "occupancy": occ[name],
         "bound_by": "bytes",

@@ -30,6 +30,7 @@ kernel's raw rows; -inf / TERMINATED fill.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -45,8 +46,10 @@ from .probe_scorer import (
     per_query_topk_from_rows,
 )
 
-#: kernel launches since the last reset (the CPU twin does not count)
+#: kernel launches since the last reset (the CPU twin does not count);
+#: batches in flight on several threads add to it under `_count_lock`
 launches = 0
+_count_lock = threading.Lock()
 
 #: items the twin scores at once, bounding its [n, 128] temporaries
 _TWIN_CHUNK = 8192
@@ -231,7 +234,8 @@ def bool_probe(rows, cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
         raise RuntimeError(
             f"bool_probe kernel launch failed: CUDA error {err}"
         )
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out_sc, out_doc
 
 

@@ -1,0 +1,108 @@
+"""Flat batched term scorer with tensorized Block-WAND pruning, in torch.
+
+Counterpart of `tantivy_tpu/ops/flat_scorer.py`. One call scores a mixed
+work list of (query, block) pairs and returns the per-query top-k, ordered
+(qid asc, score desc, doc asc): TopNComputer's tie-break. The reference's
+`flat_topk_kernel` is an XLA program (`jax.jit`), not a Pallas kernel, so
+here it is plain torch ops: a gather of the work items' store rows, BM25 as
+two correctly rounded ops (`tf / (tf + norm)`, then the weight; never
+`torch.compile`, which could contract them), a stable per-row top-kk and
+the packed-key merge tail of `probe_scorer`.
+
+The rows come from the executor's `FusedStore` instead of a second upload
+of the postings. A cstore row holds a block's docs (columns 0:128), tfs
+(128:256) and BM25 denominator `cache[norm_id]` (256:384, NaN on deleted
+and padding lanes), and for a term on field f the reference's per-query
+cache is `compute_tf_cache(avg_fieldnorm(f))`, exactly the slab's cache, so
+the scores keep the reference's bits. Block `b` of a (segment, field) slab
+is store row `slab["offset"] + b`.
+
+Block-max pruning is host numpy, as in the reference: each block's stored
+`(fieldnorm_id, tf)` pair upper-bounds its score under the query's weight,
+phase 1 scores each query's best-bmax blocks to set a threshold, phase 2
+scores only the survivors (`BatchExecutor.search_term_batch`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .probe_scorer import pack_results, per_query_topk_from_rows
+
+#: work items per call: bounds the [W, 384] gather (50 MB at the top size)
+CHUNK = 32768
+
+
+def flat_topk(cstore, rows, qid, weights, k: int, num_queries: int):
+    """Per-query top-k over work items: `rows` [W] int64 store rows, `qid`
+    [W] int32 query of each item, `weights` [Q] f32 BM25 weight per query,
+    all on `cstore`'s device. Returns the packed [2, Q, k] int32 form of
+    `probe_scorer.pack_results` (score bits | doc), -inf / 0 past a query's
+    hits."""
+    r = cstore[rows]                                          # [W, 384]
+    docs = r[:, :128]
+    tf = r[:, 128:256].float()
+    cachev = r[:, 256:].view(torch.float32)
+    scores = weights[qid.long()][:, None] * (tf / (tf + cachev))
+    scores = torch.where(torch.isnan(cachev), float("-inf"), scores)
+    # per-row top-kk prefilter: a query's top-k lies in the union of its
+    # rows' top-kk; stable, so ties keep the lower lane (lower doc) first
+    # as `jax.lax.top_k` does
+    kk = min(k, docs.shape[1])
+    row_sc, row_i = torch.sort(scores, dim=1, descending=True, stable=True)
+    row_sc, row_i = row_sc[:, :kk].contiguous(), row_i[:, :kk]
+    row_doc = docs.gather(1, row_i)
+    sc, dc = per_query_topk_from_rows(row_sc, row_doc, qid, k, num_queries)
+    return pack_results(sc, dc)
+
+
+class FlatBatchScorer:
+    """One (segment, field)'s share of a term batch: host block-max planning
+    and the flat top-k over its slab of the fused store."""
+
+    def __init__(self, slab: dict, max_phase1_blocks: int = 2):
+        self.slab = slab
+        self.dfp = slab["dfp"]
+        self.m1 = max_phase1_blocks
+
+    def block_max_scores(self, term_ord: int, weight: np.float32,
+                         cache: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(block_ids, bmax_scores) for a term (host, vectorized)."""
+        dfp = self.dfp
+        s = int(dfp.term_block_start[term_ord])
+        n = int(dfp.term_num_blocks[term_ord])
+        ids = np.arange(s, s + n)
+        tf = dfp.blk_max_tf[ids].astype(np.float32)
+        norm = cache[dfp.blk_max_fnid[ids]]
+        bmax = (weight * (tf / (tf + norm))).astype(np.float32)
+        return ids, bmax
+
+    def store_rows(self, blocks: np.ndarray) -> np.ndarray:
+        """Fused-store rows of this slab's blocks."""
+        return self.slab["offset"] + np.asarray(blocks, dtype=np.int64)
+
+
+def dispatch_flat(cstore, rows: np.ndarray, qids: np.ndarray,
+                  weights_pad: np.ndarray, k: int, num_queries: int,
+                  log: list | None = None) -> list:
+    """`flat_topk` over (store row, qid) work items in chunks of `CHUNK`.
+    Returns one packed [2, Q, k] tensor per chunk, on `cstore`'s device.
+    When `log` is a list, each chunk's exact inputs are appended to it,
+    tagged `kind="flat"`."""
+    dev = cstore.device
+    w_dev = torch.from_numpy(
+        np.ascontiguousarray(weights_pad, dtype=np.float32)
+    ).to(dev)
+    outs = []
+    for lo in range(0, len(rows), CHUNK):
+        args = (
+            cstore,
+            torch.from_numpy(rows[lo:lo + CHUNK].astype(np.int64)).to(dev),
+            torch.from_numpy(qids[lo:lo + CHUNK].astype(np.int32)).to(dev),
+            w_dev, k, num_queries,
+        )
+        if log is not None:
+            log.append(dict(kind="flat", args=args))
+        outs.append(flat_topk(*args))
+    return outs

@@ -269,9 +269,12 @@ def launch_fused_bool(fused, work, tables, k: int, num_queries: int,
         return []
     T = tables["cl_weight"].shape[1]
     num_prows = tables["cl_weight"].shape[0] - 1
-    nbp = -(-fused.num_blocks // 8) * 8
+    # one store tensor for the whole call (another batch may replace
+    # `fused.cstore` with a grown copy meanwhile)
+    cstore = fused.cstore
+    nbp = -(-cstore.shape[0] // 8) * 8
     rungs_t = fused_rungs(T)
-    device = fused.cstore.device
+    device = cstore.device
 
     with debug_time("launch.group_work", n=n_items):
         base, mask, g_prow, g_cl, g_qid, g_seg, g_jlo, g_pk, eff = \
@@ -381,12 +384,12 @@ def launch_fused_bool(fused, work, tables, k: int, num_queries: int,
         if log is not None:
             log.append(dict(
                 kind="bool", chunks=chunks, tables=table_args,
-                cstore=fused.cstore, k=k,
+                cstore=cstore, k=k,
                 num_queries=num_queries, num_prows=num_prows, n_clauses=T,
             ))
         with debug_time("launch.dispatch"):
             outs.append(fused_bool_topk(
-                chunks, table_args, fused.cstore, k, num_queries, num_prows,
+                chunks, table_args, cstore, k, num_queries, num_prows,
             ))
         if all(r[9] >= len(r[1]) for r in per_rung):
             break

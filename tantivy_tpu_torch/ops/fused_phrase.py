@@ -148,8 +148,11 @@ def launch_fused_phrase(fused, work, qw_table, n_partners: int, k: int,
         return []
     num_prows = len(qw_table) - 1
     S = n_partners
-    npr = fused.pos_rows
-    device = fused.cstore.device
+    # one pair of store tensors for the whole call (another batch may
+    # replace the store's with grown copies meanwhile)
+    cstore, postore = fused.cstore, fused.postore
+    npr = postore.shape[0]
+    device = cstore.device
 
     with debug_time("launch.phrase_groups", n=len(blocks)):
         (base, mask, prow_g, amin, amax, cmin, cmax, lpos8, llen8, cpos8,
@@ -276,12 +279,12 @@ def launch_fused_phrase(fused, work, qw_table, n_partners: int, k: int,
         if log is not None:
             log.append(dict(
                 kind="phrase", chunks=chunks, qw=qw_dev, row_th=th_dev,
-                cstore=fused.cstore, postore=fused.postore, k=k,
+                cstore=cstore, postore=postore, k=k,
                 num_queries=num_queries, num_prows=num_prows, n_partners=S,
             ))
         with debug_time("launch.dispatch"):
             outs.append(fused_phrase_topk(
-                chunks, qw_dev, th_dev, fused.cstore, fused.postore, k,
+                chunks, qw_dev, th_dev, cstore, postore, k,
                 num_queries, num_prows, S,
             ))
         if all(r[3] >= len(r[2]) for r in per_rung):

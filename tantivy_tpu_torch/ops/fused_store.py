@@ -19,9 +19,22 @@ deep probe. int32 is lossless for `cstore` because every word is < 2^31
 NaN); `postore` keeps the reference's u32 words, whose 0xFFFFFFFF padding
 reads as -1. The port's merge tail has one form for every segment and doc
 count, so the store sets no `pack_addr_ok`.
+
+Several batches may use one store at once (`BatchExecutor.search_batches`,
+each batch on its own CUDA stream). Registering a slab, rebuilding the
+store and building the position store hold `lock`, and a new device tensor
+is uploaded and its stream synchronised before it is published, so every
+stream reads it whole. Slabs keep their rows when the store grows (new
+slabs are appended), so a plan made against one build stays valid against
+the next. A replaced `cstore`, `postore` or block-last tensor is marked as
+used by every stream that has read the store (`Tensor.record_stream`), so
+the caching allocator hands its memory out again only after the kernels
+those streams had queued have passed.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -67,6 +80,10 @@ def _row_tier(rows: int, floor: int = 128) -> int:
 class FusedStore:
     def __init__(self, device="cpu"):
         self.device = torch.device(device)
+        #: held while slabs are registered and the device tensors rebuilt
+        self.lock = threading.RLock()
+        #: the CUDA streams that have read the store (`ready()`)
+        self._streams: set = set()
         self.slabs: dict[tuple[int, str], dict] = {}
         self._order: list[tuple[int, str]] = []
         self._dirty = False
@@ -114,8 +131,10 @@ class FusedStore:
         `alive` is a host bool mask or None. The whole store goes to the
         device in one transfer at the next `ready()`."""
         key = (seg_ord, field)
-        slab = self.slabs.get(key)
-        if slab is None:
+        with self.lock:
+            slab = self.slabs.get(key)
+            if slab is not None:
+                return slab
             _check_region_order(dfp.blk_base, dfp.blk_last_doc,
                                 dfp.term_block_start, dfp.term_num_blocks)
             cache = compute_tf_cache(np.float32(avg_fieldnorm))
@@ -138,10 +157,12 @@ class FusedStore:
                 "bfac": bfac,
                 "offset": -1,  # assigned at rebuild
             }
-            self.slabs[key] = slab
             self._order.append(key)
+            # dirty before the slab is visible: whoever finds it calls
+            # `ready()`, which then rebuilds before the offset is read
             self._dirty = True
             self._pos_dirty = True
+            self.slabs[key] = slab
         return slab
 
     def _rebuild(self) -> None:
@@ -177,34 +198,71 @@ class FusedStore:
                     np.full((pad, 384), np.uint32(TERMINATED), np.uint32)
                 )
             off = tier
-        self.num_blocks = off
-        self.blk_base = np.concatenate(bases) if bases else np.zeros(0, np.uint32)
-        self.blk_last_doc = (
-            np.concatenate(lasts) if lasts else np.zeros(0, np.uint32)
-        )
-        self.bfac = np.concatenate(bfacs) if bfacs else np.zeros(0, np.float32)
-        self.blk_seg = np.concatenate(segs) if segs else np.zeros(0, np.int32)
-        # ONE host concat + ONE device transfer for the whole store
-        self.cstore = (
-            _to_device(np.concatenate(stores, axis=0), self.device)
-            if stores else None
-        )
         from ..parallel.wand import RangeMax
 
-        self._rmax = RangeMax(self.bfac)
-        self._rkeys = None
-        self._blk_last_t = None
+        bfac = np.concatenate(bfacs) if bfacs else np.zeros(0, np.float32)
+        # ONE host concat + ONE device transfer for the whole store
+        cstore = (
+            self._upload(np.concatenate(stores, axis=0)) if stores else None
+        )
+        self._retire(self.cstore)
+        self._retire(self._blk_last_t)
+        # published in one step: a reader without the lock sees the old
+        # tables or the new ones, whose rows extend the old ones'
+        self.__dict__.update(
+            num_blocks=off,
+            blk_base=(np.concatenate(bases) if bases
+                      else np.zeros(0, np.uint32)),
+            blk_last_doc=(np.concatenate(lasts) if lasts
+                          else np.zeros(0, np.uint32)),
+            bfac=bfac,
+            blk_seg=np.concatenate(segs) if segs else np.zeros(0, np.int32),
+            cstore=cstore,
+            _rmax=RangeMax(bfac),
+            _rkeys=None,
+            _blk_last_t=None,
+        )
         self._dirty = False
 
-    def ready(self):
+    def _upload(self, words: np.ndarray) -> torch.Tensor:
+        """`words` (u32) as an int32 tensor on the store's device, its copy
+        finished before any other stream may read it."""
+        out = _to_device(words, self.device)
+        if out.is_cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _retire(self, old) -> None:
+        """Keep the memory of a replaced device tensor from being handed out
+        again before every stream that has read the store has passed the
+        work it had queued when the tensor is freed."""
+        if old is not None and old.is_cuda:
+            for stream in self._streams:
+                old.record_stream(stream)
+
+    def _fresh(self):
+        """Rebuild the tables and the device store when a slab was added."""
         if self._dirty:
-            self._rebuild()
+            with self.lock:
+                if self._dirty:
+                    self._rebuild()
+        return self
+
+    def ready(self):
+        """The store, rebuilt when a slab was added since the last build;
+        on CUDA, the calling thread's current stream is noted as a reader
+        (see `_retire`)."""
+        self._fresh()
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            if stream not in self._streams:
+                with self.lock:
+                    self._streams.add(stream)
         return self
 
     @property
     def rmax(self):
-        self.ready()
-        return self._rmax
+        return self._fresh()._rmax
 
     @property
     def region_keys(self):
@@ -213,8 +271,10 @@ class FusedStore:
         so one global searchsorted with a (region << 32 | doc) key answers
         a per-region bounds query. Padding rows key by their own block
         index, which keeps the array globally sorted."""
-        self.ready()
-        if self._rkeys is None:
+        with self.lock:
+            self._fresh()
+            if self._rkeys is not None:
+                return self._rkeys
             rs = np.arange(self.num_blocks, dtype=np.uint64)
             for key in self._order:
                 s = self.slabs[key]
@@ -233,11 +293,11 @@ class FusedStore:
                 and np.all(cbbase[1:] >= cbbase[:-1])
             ), "composite region keys not globally sorted"
             self._rkeys = (cblast, cbbase)
-        return self._rkeys
+            return self._rkeys
 
     def region(self, seg_ord: int, field: str, term_ord: int) -> tuple[int, int]:
         """(global block start, n_blocks) for a term of a registered slab."""
-        self.ready()
+        self._fresh()
         s = self.slabs[(seg_ord, field)]
         dfp = s["dfp"]
         return (
@@ -263,10 +323,11 @@ class FusedStore:
         """`blk_last_doc` as an int32 tensor on the store's device (every
         entry is <= TERMINATED), copied once per store build: the deep
         probe's block searches read it."""
-        self.ready()
-        if self._blk_last_t is None:
-            self._blk_last_t = _to_device(self.blk_last_doc, self.device)
-        return self._blk_last_t
+        with self.lock:
+            self._fresh()
+            if self._blk_last_t is None:
+                self._blk_last_t = self._upload(self.blk_last_doc)
+            return self._blk_last_t
 
     # -- phrase position store ---------------------------------------------
 
@@ -281,9 +342,12 @@ class FusedStore:
         reference asserts there). Every other slab is checked once for the
         order the phrase kernel's merges need: inside each term's region,
         positions ascend by (owner doc, position)."""
-        self.ready()
-        if self.postore is not None and not self._pos_dirty:
-            return
+        with self.lock:
+            self._fresh()
+            if self.postore is None or self._pos_dirty:
+                self._build_positions()
+
+    def _build_positions(self) -> None:
         from .fused_phrase import max_slab_rows
 
         pos_parts, own_parts, blk_pos_parts = [], [], []
@@ -329,15 +393,15 @@ class FusedStore:
         padv = np.full(rows_p * 128 - total, np.uint32(0xFFFFFFFF), np.uint32)
         flat_pos = np.concatenate(pos_parts + [padv]).reshape(rows_p, 128)
         flat_own = np.concatenate(own_parts + [padv]).reshape(rows_p, 128)
-        self.postore = _to_device(
-            np.concatenate([flat_pos, flat_own], axis=1), self.device
+        postore = self._upload(np.concatenate([flat_pos, flat_own], axis=1))
+        self._retire(self.postore)
+        self.__dict__.update(
+            postore=postore,
+            blk_pos=(np.concatenate(blk_pos_parts + [[total]])
+                     if blk_pos_parts else np.zeros(1, dtype=np.int64)),
+            num_pos=total,
+            pos_rows=rows_p,
         )
-        self.blk_pos = (
-            np.concatenate(blk_pos_parts + [[total]]) if blk_pos_parts
-            else np.zeros(1, dtype=np.int64)
-        )
-        self.num_pos = total
-        self.pos_rows = rows_p
         self._pos_dirty = False
 
 

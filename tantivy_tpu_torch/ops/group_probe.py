@@ -21,6 +21,7 @@ Output: per group its top-kk reporting lanes, scores [W, kk] f32 and docs
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -35,8 +36,10 @@ from .probe_scorer import (
     group_topk,
 )
 
-#: kernel launches since the last reset (the CPU twin does not count)
+#: kernel launches since the last reset (the CPU twin does not count);
+#: batches in flight on several threads add to it under `_count_lock`
 launches = 0
+_count_lock = threading.Lock()
 
 #: groups the twin scores at once, bounding its [n, 8, 128] temporaries
 _TWIN_CHUNK = 4096
@@ -186,7 +189,8 @@ def group_probe(rows, cl_weight, cl_kind, cl_shipped, req_must, req_should,
         )
     if err != 0:
         raise RuntimeError(f"group_probe kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out_sc, out_doc
 
 

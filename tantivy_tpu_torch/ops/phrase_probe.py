@@ -30,6 +30,7 @@ index r*128 + lane asc); -inf / TERMINATED fill.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -37,8 +38,10 @@ from ..postings.format import TERMINATED
 
 from .probe_scorer import check_tensor, group_topk
 
-#: kernel launches since the last reset (the CPU twin does not count)
+#: kernel launches since the last reset (the CPU twin does not count);
+#: batches in flight on several threads add to it under `_count_lock`
 launches = 0
+_count_lock = threading.Lock()
 
 #: groups the twin scores at once, bounding its per-position temporaries
 _TWIN_CHUNK = 4096
@@ -221,7 +224,8 @@ def phrase_probe(rows, qw, row_th, cstore, postore, *, n_partners: int,
         raise RuntimeError(
             f"phrase_probe kernel launch failed: CUDA error {err}"
         )
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out_sc, out_doc
 
 

@@ -322,7 +322,10 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
     )
 
     dfp, off = slab["dfp"], slab["offset"]
-    dev = fused.cstore.device
+    # one store tensor for the whole call (another batch may replace
+    # `fused.cstore` with a grown copy meanwhile)
+    cstore = fused.cstore
+    dev = cstore.device
     T = tables["cl_weight"].shape[1]
     n_iters = _iter_bucket(int(tables["cl_len"].max(initial=1)))
     targs = tuple(
@@ -348,7 +351,7 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
                 outs.append(probe_bool_topk(
                     *(torch.from_numpy(a.astype(np.int64)).to(dev)
                       for a in (b + off, q, c)),
-                    fused.cstore, fused.blk_last_device(), *targs, k=k,
+                    cstore, fused.blk_last_device(), *targs, k=k,
                     num_queries=num_queries, n_iters=n_iters,
                 ))
                 kind = "probe_deep"
@@ -368,11 +371,11 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
                 if log is not None:
                     log.append(dict(
                         kind="probe", rows=rows_t, tables=targs,
-                        cstore=fused.cstore, kw=kw, k=k,
+                        cstore=cstore, kw=kw, k=k,
                         num_queries=num_queries, n_clauses=T,
                     ))
                 outs.append(bool_probe_topk(
-                    rows_t, targs, fused.cstore, k=k,
+                    rows_t, targs, cstore, k=k,
                     num_queries=num_queries, kw=kw,
                 ))
                 kind = f"probe_kw{kw}"

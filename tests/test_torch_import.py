@@ -1,9 +1,10 @@
 """The port stands alone: it imports torch, never jax, and nothing of
 `tantivy_tpu`. Importing every module of `tantivy_tpu_torch`, and running
-its phrase path and its per-segment boolean path on the CPU, must leave no
-`jax` and no `tantivy_tpu` / `tantivy_tpu.*` module in `sys.modules`; those
-run in a fresh interpreter, because this test process has already imported
-both (tests/conftest.py). A static check parses every `.py` file of the
+its phrase path, its per-segment boolean path and the rest of its
+executor (term batches, pipelined and sharded batches, count, agg, the
+warmer) on the CPU, must leave no `jax` and no `tantivy_tpu` /
+`tantivy_tpu.*` module in `sys.modules`; those run in a fresh interpreter,
+because this test process has already imported both (tests/conftest.py). A static check parses every `.py` file of the
 port, and `chip_smoke.py`, and fails on any import of `tantivy_tpu`."""
 
 import ast
@@ -105,6 +106,46 @@ assert bool_probe.launches == 0
 """ + LOADED
 
 
+#: the flat term scorer, pipelined batches, sharded search, count and agg
+#: batches and the warmer on the CPU
+SURFACE_RUN = """
+import sys
+import tantivy_tpu_torch as tt
+from tantivy_tpu_torch.index import ReloadPolicy
+from tantivy_tpu_torch.parallel import DeviceSearchWarmer
+from tantivy_tpu_torch.parallel.shard import ShardedSearcher
+
+b = tt.Schema.builder()
+b.add_text_field("body", tt.TEXT)
+b.add_u64_field("n", tt.FAST)
+index = tt.Index.create_in_ram(b.build())
+w = index.writer_for_tests()
+for i in range(400):
+    w.add_document(tt.Document(body=f"a{i % 7} b{i % 5}", n=i % 50))
+    if i == 199:
+        w.commit()
+w.commit()
+w.close()
+warmer = DeviceSearchWarmer(["body"], device="cpu")
+searcher = index.reader(ReloadPolicy.MANUAL, warmers=[warmer]).searcher()
+ex = tt.BatchExecutor.for_searcher(searcher, device="cpu")
+assert ex is searcher._warm_executor
+terms = [tt.Term.from_field_text("body", f"a{i}") for i in range(7)]
+queries = [tt.TermQuery(t) for t in terms]
+want = [searcher.search(q, tt.TopDocs(5)) for q in queries]
+assert ex.search_term_batch(terms, 5) == want
+assert ex.search_batches([queries[:3], queries[3:]], 5, pipeline=2) == [
+    want[:3], want[3:]]
+assert ShardedSearcher(searcher, ["cpu", "cpu"]).search_batch(
+    queries, 5) == want
+q = tt.RangeQuery("n", 3, 9)
+assert ex.count_batch([q]) == [searcher.search(q, tt.Count())]
+req = {"s": {"stats": {"field": "n"}}}
+assert ex.agg_batch([req]) == [
+    searcher.search(tt.AllQuery(), tt.AggregationCollector(req))]
+""" + LOADED
+
+
 def _run(program, *args):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -126,6 +167,10 @@ def test_phrase_path_runs_without_jax():
 
 def test_probe_path_runs_without_jax():
     _run(PROBE_RUN)
+
+
+def test_executor_surface_runs_without_jax():
+    _run(SURFACE_RUN)
 
 
 def _imports_reference(node) -> bool:
