@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
    card's name and power limit;
-2. build: compiles the group-probe, phrase-probe and windowed-probe kernels
-   from `tantivy_tpu_torch/csrc` with nvcc into `build/kernels/`, all at
-   once, and prints what ptxas reports for each (registers, shared memory,
+2. build: compiles the group-probe, phrase-probe, windowed-probe and
+   packed flat-scorer kernels from `tantivy_tpu_torch/csrc` with nvcc into
+   `build/kernels/`, all at once, and prints what ptxas reports for each (registers, shared memory,
    spills) and each kernel's threads, shared memory per CTA and CTAs
    resident per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`);
 3. index: a Zipf corpus (one `body` TEXT field, windows of 20-100 tokens
@@ -41,11 +41,21 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    timed batches; sampled hits must equal the host engine's; prints QPS,
    p50 and the flat scorer's device ms over one batch's calls (CUDA
    events);
-6c. sharded: `ShardedSearcher(searcher, [cuda:0, cuda:0])` (two segments a
+6c. packed term batches: a packed-mode executor (`BatchExecutor(searcher,
+   device="cuda", mode="packed")`: the postings stay bit-packed on the card
+   and the packed flat-scorer kernel K5 decodes them per query) runs the
+   term log's warm and TIMED_BATCHES timed batches through
+   `search_term_batch`, with the counters reset just before and read just
+   after; hits must equal the dense term batches' list for list and sampled
+   hits the host engine's; every K5 chunk of one timed batch is replayed
+   through the kernel and its twin (bitwise) between CUDA events; prints
+   QPS, p50, K5's launches and ms per batch, and the packed mirror's device
+   bytes beside the fused store's cstore bytes;
+6d. sharded: `ShardedSearcher(searcher, [cuda:0, cuda:0])` (two segments a
    shard) over the term, AND, OR and phrase logs, with the counters reset
    just before and read just after; hits must equal the single executor's;
    prints QPS and peak device memory;
-6d. warmer, count and agg, on a side index of SIDE_DOCS docs with the
+6e. warmer, count and agg, on a side index of SIDE_DOCS docs with the
    bench's fast fields: a `DeviceSearchWarmer` warms a reader, `for_searcher`
    must return its executor and the first batch must answer (counters reset
    just before it); `count_batch` of BATCH range queries must equal the
@@ -63,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    survivors, 16 clauses, sub-windows of up to 255 rows, wide windows
    with lane docs in every row, windows at the store's end) at
    kk = 1, 10 and 128 through the group-probe or windowed-probe kernel and
-   its twin, bitwise;
+   its twin, bitwise, and each packed hard case (every bit width, a field
+   without freqs) at kk = 1, 10 and 128 through K5 and its twin;
 8. per batch: the real chunks one timed batch of each suite of both paths
    launched, replayed through their kernel, each chunk timed between CUDA
    events; prints per kernel and suite the launches per timed batch, the
@@ -76,13 +87,15 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    `tantivy_tpu_torch/csrc`, and their ms and the chunks whose output
    differs from the current kernel's are printed beside;
 9. with `--profile PATH` only: one more fresh batch per timed suite of
-   both paths with the engine's host spans and `torch.profiler` on; the
+   both paths, and of the term log through the dense and the packed
+   executor's `search_term_batch`, with the engine's host spans and
+   `torch.profiler` on; the
    per-layer breakdown (host span ms, device ms per kernel, idle share)
    goes to PATH as JSON.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, whose `launches_by_path` gives each kernel's
 launches on every path above that resets the counters (main, probe,
-pipelined, term_batch, sharded, warmer). The script imports nothing of `tantivy_tpu` or
+pipelined, term_batch, packed_term_batch, sharded, warmer). The script imports nothing of `tantivy_tpu` or
 jax: the port stands alone.
 """
 
@@ -121,7 +134,9 @@ PROBE_RUNGS = (2, 8, 64)
 HBM_BYTES_PER_S = 3.35e12
 #: why no library call stands beside the kernels
 NO_LIBRARY = ("no single PyTorch call computes a sorted-set probe, BM25 "
-              "scoring and a per-group top-kk over these stores")
+              "scoring and a per-group top-kk over these stores, nor a "
+              "bit-unpack, strict-delta prefix sum, BM25 and per-row top-kk "
+              "over packed postings")
 #: batches in flight in the pipelined pass
 PIPELINE = 3
 #: the suites the sharded pass runs, and its devices (one card: two shards
@@ -322,11 +337,17 @@ def timed_batches(search, qlog, log):
 
 def launch_counts() -> dict:
     """Every kernel's launch counter, by kernel name."""
-    from tantivy_tpu_torch.ops import bool_probe, group_probe, phrase_probe
+    from tantivy_tpu_torch.ops import (
+        bool_probe,
+        group_probe,
+        packed_flat,
+        phrase_probe,
+    )
 
     return {"group_probe": group_probe.launches,
             "phrase_probe": phrase_probe.launches,
-            "bool_probe": bool_probe.launches}
+            "bool_probe": bool_probe.launches,
+            "packed_flat": packed_flat.launches}
 
 
 def build_kernel(name: str, src_dir: str, tag: str):
@@ -562,7 +583,80 @@ def run_term_batches(executor, searcher, logs, seed: int) -> dict:
     flat_ms = sum(_event_ms(lambda a=a: flat_topk(*a)) for a in calls)
     return {"qps": qps, "p50_ms": p50_ms, "flat_calls": len(calls),
             "flat_items": sum(int(a[1].shape[0]) for a in calls),
-            "flat_ms": flat_ms, "sampled": EXACT_SAMPLE}
+            "flat_ms": flat_ms, "sampled": EXACT_SAMPLE, "pairs": pairs}
+
+
+def run_packed_term_batches(searcher, logs, dense_pairs, seed: int) -> dict:
+    """`search_term_batch` of a packed-mode executor (kernel K5 over the
+    bit-packed mirrors) on the term log: one warm pass over every batch of
+    the log, then TIMED_BATCHES timed batches. The warm pass fills the
+    executor's term-dictionary and BM25-weight caches, as the main path
+    filled the dense executor's over the same log, so both time the same
+    host work. Hits must equal the dense term batches' (`dense_pairs`)
+    list for list, and sampled hits the host engine's. Returns the
+    timings, the executor, the K5 calls of the first timed batch and the
+    mirror's size."""
+    import torch
+
+    import tantivy_tpu_torch as tt
+    from tantivy_tpu_torch import BatchExecutor
+    from tantivy_tpu_torch.ops import packed_flat
+
+    terms = [q.term for q in logs["term"]]
+    t0 = time.perf_counter()
+    executor = BatchExecutor(searcher, device="cuda", mode="packed")
+    executor.launch_log = []
+    executor.search_term_batch(terms[:BATCH], K)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for b in range(1, 1 + TIMED_BATCHES):
+        executor.search_term_batch(terms[b * BATCH:(b + 1) * BATCH], K)
+    n0 = packed_flat.launches
+    qps, p50_ms, pairs, batch_log = timed_batches(
+        executor.search_term_batch, terms, executor.launch_log)
+    per_batch = (packed_flat.launches - n0) / TIMED_BATCHES
+    executor.launch_log = None
+    if len(pairs) != len(dense_pairs) or not all(
+            _same_hits(g, w) for (_, g), (_, w) in zip(pairs, dense_pairs)):
+        raise AssertionError("packed term batch: hits differ from the dense "
+                             "term batches'")
+    rng = np.random.default_rng(seed + 9)
+    for i in rng.choice(len(pairs), EXACT_SAMPLE, replace=False):
+        term, dev = pairs[i]
+        host = searcher.search(tt.TermQuery(term), tt.TopDocs(K))
+        if not _same_hits(dev, host):
+            raise AssertionError(f"packed term batch: device hits differ "
+                                 f"from the host engine for {term!r}")
+    if not any(rec["kind"] == "packed_flat" for rec in batch_log):
+        raise AssertionError("the packed term batch made no K5 call")
+    dsegs = executor._device_segments
+    return {"qps": qps, "p50_ms": p50_ms, "warm_s": warm_s,
+            "launches_per_batch": per_batch, "executor": executor,
+            "batch_log": batch_log, "sampled": EXACT_SAMPLE,
+            "mirror_bytes": sum(d.packed_mirror("body", executor.device).nbytes
+                                for d in dsegs),
+            "blocks": sum(d.field_postings("body").num_blocks for d in dsegs),
+            "segments": len(dsegs)}
+
+
+def packed_flat_vs_twin(batch_log) -> dict:
+    """Every K5 call of one packed term batch through the kernel and its
+    twin: bitwise equal, each timed between CUDA events, with the bytes it
+    must move. Returns the sums over the batch and the largest chunk's
+    (W, kernel ms, twin ms, bytes)."""
+    max_err, chunks = 0.0, []
+    calls = [rec["args"] for rec in batch_log if rec["kind"] == "packed_flat"]
+    for i, args in enumerate(calls):
+        kern, twin = packed_flat_calls(args)
+        err, _ = _compare(f"packed_flat chunk {i}", kern, twin)
+        max_err = max(max_err, err)
+        chunks.append((int(args[1].shape[0]), _event_ms(kern),
+                       _event_ms(twin), packed_flat_bytes(args)))
+    return {"chunks": len(calls), "items": sum(c[0] for c in chunks),
+            "ms": sum(c[1] for c in chunks),
+            "twin_ms": sum(c[2] for c in chunks),
+            "bytes": sum(c[3] for c in chunks), "max_abs_err": max_err,
+            "big_chunk": max(chunks)}
 
 
 def run_sharded(searcher, logs, answered, devices=SHARD_DEVICES) -> dict:
@@ -809,6 +903,18 @@ def phrase_calls(rec, rr, rows):
             lambda: phrase_probe_ref(*args, **kw))
 
 
+def packed_flat_calls(args):
+    """(kernel, twin) no-argument calls of kernel K5 on one logged chunk
+    (`dispatch_packed_flat`'s args: mirror, blocks, qids, weights, caches,
+    k, num_queries)."""
+    from tantivy_tpu_torch.ops.packed_flat import packed_flat, packed_flat_ref
+
+    mirror, blocks, qids, weights, caches, k, num_queries = args
+    a = (*mirror, blocks, qids, weights, caches)
+    kw = dict(num_queries=num_queries, kk=min(k, 128))
+    return (lambda: packed_flat(*a, **kw), lambda: packed_flat_ref(*a, **kw))
+
+
 def bool_calls(rec, rows):
     """(kernel, twin) no-argument calls of kernel K3 on one chunk."""
     from tantivy_tpu_torch.ops.bool_probe import bool_probe, bool_probe_ref
@@ -962,6 +1068,31 @@ def bool_probe_bytes(rec, rows) -> int:
             + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
 
 
+def packed_flat_bytes(args) -> int:
+    """Kernel K5: each distinct block's packed doc and tf words (16 bytes
+    per bit of width) and table row (32 bytes), the alive byte of each
+    distinct doc in those blocks and the norm-id byte of each live one, the
+    items (block id and qid), each query's weight and denominator table,
+    and the [W, kk] outputs."""
+    import torch
+
+    from tantivy_tpu_torch.ops.decode import decode_blocks
+
+    mirror, blocks, qids, weights, caches, k, num_queries = args
+    uniq = torch.unique(blocks)
+    tab = _np(mirror.blk_tab[uniq.long()])
+    docs, _ = decode_blocks(*mirror[:3], uniq)
+    docs = torch.unique(docs[docs != 2**31 - 1]).long()
+    n_live = int(mirror.alive[docs].sum())
+    q = _np(torch.unique(qids))
+    n_q = int((q < num_queries).sum())
+    W = blocks.shape[0]
+    return (int(16 * (tab[:, 1] + tab[:, 3]).sum()) + 32 * len(tab)
+            + docs.numel() + n_live + 8 * W
+            + n_q * (weights.element_size() + caches[0].numel() * 4)
+            + W * min(k, 128) * 8)
+
+
 def _rounded(v):
     if isinstance(v, dict):
         return {k: _rounded(x) for k, x in v.items()}
@@ -983,6 +1114,9 @@ def chunk_work(rec):
         for rr, rows, _, _ in rec["chunks"]:
             yield ("phrase_probe", phrase_calls(rec, rr, rows)[0],
                    phrase_probe_bytes(rec, rr, rows))
+    elif rec["kind"] == "packed_flat":
+        yield ("packed_flat", packed_flat_calls(rec["args"])[0],
+               packed_flat_bytes(rec["args"]))
     else:
         yield ("bool_probe", bool_calls(rec, rec["rows"])[0],
                bool_probe_bytes(rec, rec["rows"]))
@@ -1090,11 +1224,12 @@ def baseline_synthetic(name: str, kern, baselines: dict) -> dict:
 
 def hard_cases_vs_twin() -> None:
     """Each synthetic hard case of `ops/kernel_cases.py` at kk = 1, 10 and
-    128 through the group-probe or windowed-probe kernel and its twin on
-    the card, bitwise."""
+    128 through the group-probe, windowed-probe or packed flat-scorer
+    kernel and its twin on the card, bitwise."""
     import torch
 
     from tantivy_tpu_torch.ops import kernel_cases as kc
+    from tantivy_tpu_torch.ops.device_index import PackedMirror
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).cuda()
@@ -1121,6 +1256,19 @@ def hard_cases_vs_twin() -> None:
             _, n_rep = _compare(name, *calls)
             print(f"kernel==twin {name}: W={rows.shape[0]} "
                   f"T={case['T']} reported={n_rep} bitwise equal")
+    for kind in kc.PACKED_KINDS:
+        case = kc.packed_case(kind)
+        mirror = PackedMirror(*(
+            dev(a.view(np.int32) if a.dtype == np.uint32 else a)
+            for a in case["mirror"]))
+        head = (mirror, dev(case["blocks"]), dev(case["qids"]),
+                dev(case["weights"]), dev(case["caches"]))
+        for kk in (1, 10, 128):
+            name = f"packed_flat hard case {kind} kk={kk}"
+            _, n_rep = _compare(name, *packed_flat_calls(
+                (*head, kk, case["num_queries"])))
+            print(f"kernel==twin {name}: W={len(case['blocks'])} "
+                  f"reported={n_rep} bitwise equal")
 
 
 def group_probe_vs_twin(log, baselines: dict) -> dict:
@@ -1245,9 +1393,12 @@ def bool_probe_vs_twin(log, baselines: dict) -> dict:
             "baseline_synthetic_ms": times[0][3]}
 
 
-def profile_layers(executor, stream, seed: int, path: str) -> None:
+def profile_layers(executor, packed_executor, stream, seed: int,
+                   path: str) -> None:
     """Per-layer breakdown of one fresh batch per suite of both paths (the
-    probe path's suites are named `probe_*`): an untraced batch, then
+    probe path's suites are named `probe_*`) and of the term log through
+    `search_term_batch` on the dense and the packed executor
+    (`term_batch`, `packed_term_batch`): an untraced batch, then
     another with the engine's host spans (`tantivy_tpu_torch.utils.trace`) and
     `torch.profiler` on. Device time is the sum of the CUDA kernels' and
     copies' own time (overlap between streams would count twice); idle
@@ -1265,6 +1416,12 @@ def profile_layers(executor, stream, seed: int, path: str) -> None:
             for suite, qlog in logs.items()]
     runs += [(f"probe_{suite}", executor.search_boolean_batch, qlog)
              for suite, qlog in probe_logs(logs).items()]
+
+    def term_batch(ex):
+        return lambda qs, k: ex.search_term_batch([q.term for q in qs], k)
+
+    runs += [("term_batch", term_batch(executor), logs["term"]),
+             ("packed_term_batch", term_batch(packed_executor), logs["term"])]
     for suite, search, qlog in runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1339,6 +1496,7 @@ def main(argv=None) -> int:
         _build,
         bool_probe,
         group_probe,
+        packed_flat,
         phrase_probe,
     )
 
@@ -1346,6 +1504,7 @@ def main(argv=None) -> int:
         group_probe.launches = 0
         phrase_probe.launches = 0
         bool_probe.launches = 0
+        packed_flat.launches = 0
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1481,7 +1640,37 @@ def main(argv=None) -> int:
           f"queries equal to the host engine; launches "
           f"{by_path['term_batch']}")
 
-    # 6c. sharded
+    # 6c. packed term batches: K5 over the bit-packed mirrors
+    zero_counts()
+    packed = run_packed_term_batches(searcher, logs, term_batch.pop("pairs"),
+                                     args.seed)
+    read_counts("packed_term_batch", ("packed_flat",))
+    launches["packed_flat"] = by_path["packed_term_batch"]["packed_flat"]
+    packed.update(packed_flat_vs_twin(packed["batch_log"]))
+    cstore_bytes = fused.cstore.numel() * fused.cstore.element_size()
+    print(f"packed term batch: {packed['qps']:.1f} QPS, p50 "
+          f"{packed['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} ({gpu}) "
+          f"against the dense term batch's {term_batch['qps']:.1f} QPS, p50 "
+          f"{term_batch['p50_ms']:.1f} ms; packed_flat (K5) "
+          f"{packed['launches_per_batch']:.1f} launches per timed batch, "
+          f"{packed['ms']:.3f} ms device time over the {packed['chunks']} "
+          f"chunks ({packed['items']} work items) of one batch (CUDA "
+          f"events; twin {packed['twin_ms']:.3f} ms), {packed['bytes']} "
+          f"bytes, bound {bound_ms(packed['bytes']):.4f} ms; every chunk "
+          f"equals the twin bitwise; hits equal the dense term batches' and "
+          f"{packed['sampled']} sampled queries the host engine; first warm "
+          f"batch, the mirrors' upload included, {packed['warm_s']:.2f} s; "
+          f"launches "
+          f"{by_path['packed_term_batch']}")
+    print(f"packed mirror: {packed['mirror_bytes']} bytes on the card for "
+          f"`body` over {packed['segments']} segments, "
+          f"{packed['mirror_bytes'] / packed['blocks']:.1f} B per 128-doc "
+          f"block ({packed['blocks']} blocks), against the fused store's "
+          f"cstore {cstore_bytes} bytes "
+          f"({cstore_bytes / packed['blocks']:.1f} B per block; 1,536 B a "
+          f"row): {cstore_bytes / packed['mirror_bytes']:.2f}x smaller")
+
+    # 6d. sharded
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     sharded = run_sharded(searcher, logs, answered)
@@ -1496,7 +1685,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the single "
           f"executor's store included); launches {by_path['sharded']}")
 
-    # 6d. warmer, count and agg on the side index
+    # 6e. warmer, count and agg on the side index
     side = run_side_index(stream, logs, args.seed, zero_counts)
     by_path["warmer"] = {"group_probe": side["first_batch_group_probe"]}
     print(f"side index: {SIDE_DOCS} docs with fast fields in "
@@ -1512,21 +1701,35 @@ def main(argv=None) -> int:
           f"ms (one AggregationCollector each: {side['agg_host_ms']:.1f} ms); "
           "all equal")
 
+    big_w, big_ms, big_twin_ms, big_bytes = packed["big_chunk"]
+    print(f"kernel==twin packed_flat largest chunk: W={big_w} bitwise "
+          f"equal; kernel {big_ms:.3f} ms, twin {big_twin_ms:.3f} ms, bound "
+          f"{bound_ms(big_bytes):.4f} ms")
     stats = {"group_probe": group_probe_vs_twin(log, baselines),
              "phrase_probe": phrase_probe_vs_twin(log, baselines),
-             "bool_probe": bool_probe_vs_twin(probe_log, baselines)}
+             "bool_probe": bool_probe_vs_twin(probe_log, baselines),
+             "packed_flat": {"max_abs_err": packed["max_abs_err"],
+                             "ms": big_ms, "plain_ms": big_twin_ms,
+                             "bound_ms": bound_ms(big_bytes),
+                             "baseline_synthetic_ms": {}}}
     hard_cases_vs_twin()
     per_batch = batch_kernel_times({
         **timing,
         **{f"probe_{suite}": tm for suite, tm in probe_timing.items()},
+        "packed_term": {"batch_log": packed["batch_log"],
+                        "launches_per_batch": {
+                            "packed_flat": packed["launches_per_batch"]}},
     }, baselines, occ)
     print(f"library call: none for any kernel: {NO_LIBRARY}")
     if args.profile:
-        profile_layers(executor, stream, args.seed, args.profile)
+        profile_layers(executor, packed["executor"], stream, args.seed,
+                       args.profile)
 
     replaces = {"group_probe": "tantivy_tpu/ops/pallas_probe.py:533",
                 "phrase_probe": "tantivy_tpu/ops/pallas_phrase.py:98",
-                "bool_probe": "tantivy_tpu/ops/pallas_probe.py:126"}
+                "bool_probe": "tantivy_tpu/ops/pallas_probe.py:126",
+                "packed_flat": "tantivy_tpu/ops/decode.py:58 + "
+                               "tantivy_tpu/ops/flat_scorer.py:43"}
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -110,7 +110,8 @@ class SegmentReader:
         self._alive_cache = None
         self._alive_loaded = False
         self._inverted: dict[int, InvertedIndexReader] = {}
-        self._device = None
+        #: device mirrors by mode ("dense", "packed"), made on first use
+        self._devices: dict = {}
         with _live_readers_lock:
             _live_readers.add(self)
 
@@ -252,13 +253,16 @@ class SegmentReader:
 
     # -- device mirror -------------------------------------------------------
 
-    def device(self):
-        """Lazy HBM mirror of the scoring-relevant arrays."""
-        if self._device is None:
+    def device(self, mode: str = "dense"):
+        """Lazy mirror of the scoring-relevant arrays in `mode` ("dense" or
+        "packed"); one per mode, so executors of both modes share a reader
+        without rebuilding each other's."""
+        dseg = self._devices.get(mode)
+        if dseg is None:
             from ..ops.device_index import DeviceSegment
 
-            self._device = DeviceSegment(self)
-        return self._device
+            dseg = self._devices[mode] = DeviceSegment(self, mode)
+        return dseg
 
     def space_usage(self) -> dict[str, int]:
         def nbytes(arrs) -> int:

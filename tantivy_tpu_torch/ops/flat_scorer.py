@@ -17,6 +17,12 @@ cache is `compute_tf_cache(avg_fieldnorm(f))`, exactly the slab's cache, so
 the scores keep the reference's bits. Block `b` of a (segment, field) slab
 is store row `slab["offset"] + b`.
 
+In packed mode the rows come from each (segment, field)'s packed mirror
+instead (`PackedFlatScorer`, `dispatch_packed_flat`): kernel K5
+(`ops/packed_flat.py`) decodes the bit-packed blocks and scores them with
+the per-query denominator tables, one launch per (segment, field) chunk,
+as the reference dispatches per scorer.
+
 Block-max pruning is host numpy, as in the reference: each block's stored
 `(fieldnorm_id, tf)` pair upper-bounds its score under the query's weight,
 phase 1 scores each query's best-bmax blocks to set a threshold, phase 2
@@ -28,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .packed_flat import packed_flat_topk
 from .probe_scorer import pack_results, per_query_topk_from_rows
 
 #: work items per call: bounds the [W, 384] gather (50 MB at the top size)
@@ -57,13 +64,12 @@ def flat_topk(cstore, rows, qid, weights, k: int, num_queries: int):
     return pack_results(sc, dc)
 
 
-class FlatBatchScorer:
-    """One (segment, field)'s share of a term batch: host block-max planning
-    and the flat top-k over its slab of the fused store."""
+class _BlockMaxPlanner:
+    """Host block-max planning of one (segment, field)'s share of a term
+    batch."""
 
-    def __init__(self, slab: dict, max_phase1_blocks: int = 2):
-        self.slab = slab
-        self.dfp = slab["dfp"]
+    def __init__(self, dfp, max_phase1_blocks: int = 2):
+        self.dfp = dfp
         self.m1 = max_phase1_blocks
 
     def block_max_scores(self, term_ord: int, weight: np.float32,
@@ -78,9 +84,27 @@ class FlatBatchScorer:
         bmax = (weight * (tf / (tf + norm))).astype(np.float32)
         return ids, bmax
 
+
+class FlatBatchScorer(_BlockMaxPlanner):
+    """Dense mode: the flat top-k over the (segment, field)'s slab of the
+    fused store."""
+
+    def __init__(self, slab: dict, max_phase1_blocks: int = 2):
+        super().__init__(slab["dfp"], max_phase1_blocks)
+        self.slab = slab
+
     def store_rows(self, blocks: np.ndarray) -> np.ndarray:
         """Fused-store rows of this slab's blocks."""
         return self.slab["offset"] + np.asarray(blocks, dtype=np.int64)
+
+
+class PackedFlatScorer(_BlockMaxPlanner):
+    """Packed mode: kernel K5 over the (segment, field)'s packed mirror
+    (`device_index.PackedMirror`), whose block ids are the field's own."""
+
+    def __init__(self, dfp, mirror, max_phase1_blocks: int = 2):
+        super().__init__(dfp, max_phase1_blocks)
+        self.mirror = mirror
 
 
 def dispatch_flat(cstore, rows: np.ndarray, qids: np.ndarray,
@@ -105,4 +129,27 @@ def dispatch_flat(cstore, rows: np.ndarray, qids: np.ndarray,
         if log is not None:
             log.append(dict(kind="flat", args=args))
         outs.append(flat_topk(*args))
+    return outs
+
+
+def dispatch_packed_flat(mirror, blocks: np.ndarray, qids: np.ndarray,
+                         weights, caches, k: int, num_queries: int,
+                         log: list | None = None) -> list:
+    """`packed_flat.packed_flat_topk` over (block, qid) work items of one
+    (segment, field) in chunks of `CHUNK`; `weights` [Q + 1] and `caches`
+    [Q + 1, 256] are f32 tensors on the mirror's device. Returns one packed
+    [2, Q, k] tensor per chunk. When `log` is a list, each chunk's exact
+    inputs are appended to it, tagged `kind="packed_flat"`."""
+    dev = mirror.blk_tab.device
+    outs = []
+    for lo in range(0, len(blocks), CHUNK):
+        args = (
+            mirror,
+            torch.from_numpy(blocks[lo:lo + CHUNK].astype(np.int32)).to(dev),
+            torch.from_numpy(qids[lo:lo + CHUNK].astype(np.int32)).to(dev),
+            weights, caches, k, num_queries,
+        )
+        if log is not None:
+            log.append(dict(kind="packed_flat", args=args))
+        outs.append(packed_flat_topk(*args))
     return outs

@@ -1,6 +1,7 @@
 """Synthetic launch chunks for the boolean probe kernels K1 (group probe)
-and K3 (windowed probe), made from a seed with numpy: the shapes the real
-launches seldom reach and the kernels' designs find hard. The tests hold the
+and K3 (windowed probe) and the packed flat scorer K5, made from a seed
+with numpy: the shapes the real launches seldom reach and the kernels'
+designs find hard. The tests hold the
 plain twins against the reference kernels on them, and the card checks
 (`tests/test_torch_*_probe.py`, `chip_smoke.py`) hold the CUDA kernels
 against the twins.
@@ -27,6 +28,14 @@ K3 kinds (`bool_case`):
 * "every_row": the wide rung (kw = 64) with lane docs in every row of a
   70-row window, the region's last row included (TERMINATED padding);
 * "store_end": windows that end at the store's last row (kw = 8 or 64).
+K5 kinds (`packed_case`), packed mirrors built from random deltas:
+* "widths": a block of every doc width (0 to 32) at full and short
+  lengths, tf rows of every width, words with the top bit set (width-32
+  deltas wrap the doc ids past 2^32, width-32 tfs wrap to 0), a block whose
+  last doc is max_doc - 1, a block whose docs are all deleted, blocks
+  repeated for one query and padding items;
+* "no_freqs": a field without freqs (every tf 1, no tf words), two
+  field-norm ids, so equal scores straddle every top-kk cut.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ KIND_MUST, KIND_SHOULD, KIND_MUST_NOT, KIND_ABSENT = 0, 1, 2, 3
 
 GROUP_KINDS = ("ties", "t16", "wide", "oversized")
 BOOL_KINDS = ("every_row", "store_end")
+PACKED_KINDS = ("widths", "no_freqs")
+_WIDTHS = (0, 1, 2, 4, 8, 16, 32)
 
 #: items of every synthetic chunk
 CHUNK_W = 64
@@ -253,3 +264,69 @@ def bool_case(kind: str, kw: int = 64, seed: int = 0) -> dict:
                 tables=(cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
                         req_must, req_should),
                 cstore=cstore)
+
+
+def _packed_rows(rng, bits: int, top_bit: bool) -> np.ndarray:
+    """[128] u32 values of width `bits` (top-bit-heavy when asked)."""
+    if bits == 0:
+        return np.zeros(128, np.uint32)
+    hi = 1 << bits
+    vals = rng.integers(hi // 2 if top_bit else 0, hi, 128, dtype=np.uint64)
+    return vals.astype(np.uint32)
+
+
+def packed_case(kind: str, seed: int = 0) -> dict:
+    """One K5 launch chunk of `kind` (see the module note): `mirror`, the
+    numpy arrays of a `device_index.PackedMirror` (doc_words and tf_words
+    u32, blk_tab [NB, 8] i32, norm_ids u8, alive bool), `blocks` and
+    `qids` [64] i32 (items past the real ones have qid = num_queries),
+    `weights` [Q + 1] f32, `caches` [Q + 1, 256] f32 and `num_queries`."""
+    from ..common import bitpack
+    from ..query.bm25 import compute_tf_cache
+
+    rng = np.random.default_rng(3000 + 17 * seed + PACKED_KINDS.index(kind))
+    max_doc = 40_000
+    freqs = kind != "no_freqs"
+    # (doc width, length, base, tf width); tf widths cycle over _WIDTHS
+    spec = []
+    for i, w in enumerate(_WIDTHS):
+        for length in (128, int(rng.integers(1, 128))):
+            span = 128 << w if w <= 8 else 0
+            base = int(rng.integers(0, max(max_doc - span - 128, 1)))
+            spec.append((w, length, base, _WIDTHS[(i + length) % 7]))
+    spec.append((0, 100, max_doc - 100, 1))     # last doc max_doc - 1
+    dead_base = int(rng.integers(0, max_doc - 128))
+    spec.append((0, 128, dead_base, 2))         # every doc deleted
+    doc_words, tf_words, tab = [], [], []
+    n_doc = n_tf = 0
+    for w, length, base, tw in spec:
+        tw = tw if freqs else 0
+        deltas = _packed_rows(rng, w, top_bit=w >= 16)
+        tfs = _packed_rows(rng, tw, top_bit=tw == 32)
+        doc_words.append(bitpack.pack_rows(deltas[None], w).reshape(-1))
+        tf_words.append(bitpack.pack_rows(tfs[None], tw).reshape(-1))
+        tab.append((n_doc, w, n_tf, tw, base, length, 0, 0))
+        n_doc += 4 * w
+        n_tf += 4 * tw
+    norm_ids = rng.integers(0, 256 if freqs else 2, max_doc).astype(np.uint8)
+    alive = rng.random(max_doc) >= 0.1
+    alive[dead_base:dead_base + 128] = False
+    mirror = (np.concatenate(doc_words).astype(np.uint32),
+              np.concatenate(tf_words).astype(np.uint32),
+              np.array(tab, np.int32), norm_ids, alive)
+    Q = 6
+    nb = len(spec)
+    items = [(b, int(rng.integers(0, Q))) for b in range(nb)]
+    items += [(b, int(rng.integers(0, Q))) for b in rng.choice(nb, 8)]
+    items += [(0, 0), (0, 0), (3, 1), (3, 1), (3, 1)]   # repeated blocks
+    blocks = np.zeros(CHUNK_W, np.int32)
+    qids = np.full(CHUNK_W, Q, np.int32)
+    blocks[:len(items)], qids[:len(items)] = zip(*items)
+    weights = rng.uniform(0.5, 3.0, Q + 1).astype(np.float32)
+    if not freqs:
+        weights[:] = weights[0]
+    caches = np.stack([compute_tf_cache(np.float32(a))
+                       for a in rng.uniform(5.0, 60.0, Q + 1)])
+    return dict(kind=kind, mirror=mirror, blocks=blocks, qids=qids,
+                weights=weights, caches=caches.astype(np.float32),
+                num_queries=Q)

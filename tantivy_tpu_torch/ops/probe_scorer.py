@@ -125,10 +125,11 @@ def per_query_topk_from_rows(row_sc, row_doc, qid, k: int, num_queries: int):
     """[W, kk] per-row candidates of one segment -> per-query top-k (scores
     [Q, k] f32, docs [Q, k] i32), ordered (qid asc, score desc, doc asc):
     TopNComputer's tie-break. As in the reference, there is no dedup: the
-    primary-lane rule reports each doc of a query once per segment."""
+    primary-lane rule reports each doc of a query once per segment. Docs
+    order as uint32, as the reference's do."""
     kk = row_sc.shape[1]
     flat_scores = row_sc.reshape(-1)
-    flat_docs = row_doc.reshape(-1).long()
+    flat_docs = row_doc.reshape(-1).long() & _U32
     flat_qid = torch.where(
         flat_scores == float("-inf"), num_queries,
         qid.long().repeat_interleave(kk),

@@ -20,6 +20,11 @@ kernel (`bool_probe.bool_probe_topk`) or the deep per-lane probe, each
 with a per-segment merge tail. A fourth, `search_term_batch`, is the
 reference's flat term scorer (`ops/flat_scorer.py`, plain torch). All read
 the same fused store.
+In packed mode (`mode="packed"`, the reference's) no fused store is built:
+`search_term_batch` runs the flat scorer's packed form, kernel K5 over each
+(segment, field)'s bit-packed mirror (`ops/packed_flat.py`), and
+`search_batch` routes as the reference does with its fused chain off; the
+dense-only paths raise.
 Single-term phrase-prefixes expand into term sub-queries on the first
 chain. Sloppy phrases, phrases on fields without positions, phrases longer
 than `PHRASE_T_MAX` and every other query type run on the host engine, as
@@ -38,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.device_index import check_mode, dense_only
 from ..ops.fused_store import FusedStore
 from ..postings.format import TERMINATED as TERMINATED_U32
 from ..query.bm25 import Bm25Weight
@@ -49,6 +55,12 @@ NEG_INF = np.float32(-np.inf)
 #: max terms per phrase(-prefix) query on the device path (the reference's
 #: `ops/phrase_scorer.T_MAX`; partner buckets S = t_bucket(T) - 1 <= 7)
 PHRASE_T_MAX = 8
+
+#: the kernels each mode runs (`prewarm` loads these)
+_MODE_KERNELS = {
+    "dense": ("group_probe", "phrase_probe", "bool_probe"),
+    "packed": ("packed_flat",),
+}
 
 #: phase-2 threshold-ratchet tuning (per-query units): ratchet when more
 #: than _RATCHET_MIN_PER_Q * Q work items survive phase 1, shipping the
@@ -224,25 +236,35 @@ class DeviceSearchWarmer:
     prepares for batches like `queries_hint`. The warmed executor is
     stashed on the searcher; `BatchExecutor.for_searcher(searcher)` fetches
     it, so the first batch after a commit pays no upload and no build.
-    `device` defaults to "cuda" and must exist."""
+    `device` defaults to "cuda" and must exist. In packed mode the warmer
+    builds each field's packed mirror on every segment instead of the
+    slabs (the position store is dense-only)."""
 
     def __init__(self, fields: list, queries_hint: list | None = None,
-                 k: int = 10, with_positions: bool = False, device="cuda"):
+                 k: int = 10, with_positions: bool = False, device="cuda",
+                 mode: str = "dense"):
         self.fields = list(fields)
         self.queries_hint = queries_hint
         self.k = k
+        self.mode = check_mode(mode)
+        if with_positions and mode == "packed":
+            raise dense_only("the position store")
         self.with_positions = with_positions
         self.device = _device(device)
         self._prewarmed = False
 
     def warm(self, searcher) -> None:
-        ex = BatchExecutor(searcher, device=self.device)
+        ex = BatchExecutor(searcher, device=self.device, mode=self.mode)
         for seg_ord in range(len(searcher.segment_readers())):
             for f in self.fields:
-                ex._ensure_fused_slab(seg_ord, f)
-        fused = ex._fused().ready()
-        if self.with_positions and fused.slabs:
-            fused.ensure_positions()
+                if self.mode == "packed":
+                    ex._flat_scorer(seg_ord, f)
+                else:
+                    ex._ensure_fused_slab(seg_ord, f)
+        if self.mode == "dense":
+            fused = ex._fused().ready()
+            if self.with_positions and fused.slabs:
+                fused.ensure_positions()
         if self.queries_hint and not self._prewarmed:
             ex.prewarm(self.queries_hint, k=self.k)
             self._prewarmed = True
@@ -254,27 +276,35 @@ class BatchExecutor:
     queries on `device`.
 
     `device` defaults to "cuda" and must exist: nothing silently moves to
-    the CPU. On "cpu" every kernel runs its plain PyTorch version."""
+    the CPU. On "cpu" every kernel runs its plain PyTorch version.
+    `mode` is the reference's: "dense" (decoded rows in the fused store,
+    every device path) or "packed" (bit-packed postings on the device,
+    decoded per query; only `search_term_batch` runs on the device, and
+    the dense-only paths raise)."""
 
     @classmethod
-    def for_searcher(cls, searcher: Searcher,
-                     device="cuda") -> "BatchExecutor":
+    def for_searcher(cls, searcher: Searcher, device="cuda",
+                     mode: str = "dense") -> "BatchExecutor":
         """The searcher's warmed executor when a `DeviceSearchWarmer` on
-        `device` ran on this generation (slabs and kernels ready), else a
-        new executor on `device`."""
+        `device` in `mode` ran on this generation (slabs or mirrors and
+        kernels ready), else a new executor on `device` in `mode`."""
         dev = _device(device)
         ex = getattr(searcher, "_warm_executor", None)
-        if ex is not None and ex.device == dev:
+        if ex is not None and ex.device == dev and ex.mode == mode:
             return ex
-        return cls(searcher, device=dev)
+        return cls(searcher, device=dev, mode=mode)
 
-    def __init__(self, searcher: Searcher, device="cuda"):
+    def __init__(self, searcher: Searcher, device="cuda",
+                 mode: str = "dense"):
         import threading
 
         self.searcher = searcher
+        self.mode = check_mode(mode)
         self.device = dev = _device(device)
+        # each reader keeps one mirror per mode (the reference's
+        # `_device_for` rebuilds it when the mode changes)
         self._device_segments = [
-            r.device() for r in searcher.segment_readers()
+            r.device(mode) for r in searcher.segment_readers()
         ]
         self._field_stats: dict[str, object] = {}
         self._field_wand_cache: dict[tuple[int, str], object] = {}
@@ -332,28 +362,33 @@ class BatchExecutor:
     # term batches (the flat scorer)
 
     def _flat_scorer(self, seg_ord: int, field: str):
-        """The flat term scorer of one (segment, field), over its slab of
-        the fused store."""
-        from ..ops.flat_scorer import FlatBatchScorer
+        """The flat term scorer of one (segment, field): over its slab of
+        the fused store, or in packed mode over its packed mirror."""
+        from ..ops.flat_scorer import FlatBatchScorer, PackedFlatScorer
 
         key = (seg_ord, field)
         sc = self._flat_scorers.get(key)
         if sc is None:
-            self._ensure_fused_slab(seg_ord, field)
-            sc = self._flat_scorers[key] = FlatBatchScorer(
-                self._fused().slabs[key]
-            )
+            if self.mode == "packed":
+                dseg = self._device_segments[seg_ord]
+                sc = PackedFlatScorer(dseg.field_postings(field),
+                                      dseg.packed_mirror(field, self.device))
+            else:
+                self._ensure_fused_slab(seg_ord, field)
+                sc = FlatBatchScorer(self._fused().slabs[key])
+            self._flat_scorers[key] = sc
         return sc
 
     def search_term_batch(self, terms: list, k: int):
         """Batched term-query top-k with tensorized Block-WAND pruning, on
-        the flat scorer (`ops/flat_scorer.py`), as the reference runs it.
+        the flat scorer (`ops/flat_scorer.py`), as the reference runs it; in
+        packed mode on kernel K5 over the packed mirrors.
 
         Phase 1 scores each query's best block-max blocks everywhere to set a
         per-query threshold; phase 2 scores only blocks whose block-max beats
         it. Exact modulo the reference's own block-max caveat. `terms` are
         `Term`s. Returns list[list[(score, DocAddress)]]."""
-        from ..ops.flat_scorer import dispatch_flat
+        from ..ops.flat_scorer import dispatch_flat, dispatch_packed_flat
 
         Q = len(terms)
         if Q == 0:
@@ -370,25 +405,43 @@ class BatchExecutor:
         by_field: dict[str, list[int]] = {}
         for qi, t in enumerate(terms):
             by_field.setdefault(t.field, []).append(qi)
-        for seg_ord in range(len(readers)):
-            for field in by_field:
-                self._ensure_fused_slab(seg_ord, field)
-        fused = self._fused().ready()
+        if self.mode == "dense":
+            for seg_ord in range(len(readers)):
+                for field in by_field:
+                    self._ensure_fused_slab(seg_ord, field)
+            fused = self._fused().ready()
 
-        def dispatch(rows, qids):
-            # one flat launch per segment: store rows of every field mix
-            return dispatch_flat(
-                fused.cstore, np.concatenate(rows), np.concatenate(qids),
-                weights_pad, k, Q, log=self.launch_log,
-            )
+            def dispatch(work):
+                # one flat launch per segment: store rows of every field mix
+                return dispatch_flat(
+                    fused.cstore,
+                    np.concatenate([sc.store_rows(b) for sc, b, _ in work]),
+                    np.concatenate([q for _, _, q in work]),
+                    weights_pad, k, Q, log=self.launch_log,
+                )
+        else:
+            w_dev = torch.from_numpy(weights_pad).to(self.device)
+            c_dev = torch.from_numpy(caches_pad).to(self.device)
+
+            def dispatch(work):
+                # one launch per (segment, field) chunk: block ids index
+                # that field's mirror
+                by_scorer: dict = {}
+                for sc, b, q in work:
+                    by_scorer.setdefault(sc, []).append((b, q))
+                return [out for sc, items in by_scorer.items()
+                        for out in dispatch_packed_flat(
+                            sc.mirror,
+                            np.concatenate([b for b, _ in items]),
+                            np.concatenate([q for _, q in items]),
+                            w_dev, c_dev, k, Q, log=self.launch_log)]
 
         # host planning: per (segment, query) block lists + bmax scores
         per_seg_rest: dict[int, list] = {}
         pending1 = []
         with debug_time("term.plan_dispatch1"):
             for seg_ord, reader in enumerate(readers):
-                p1_rows: list[np.ndarray] = []
-                p1_qids: list[np.ndarray] = []
+                work1 = []  # (scorer, blocks, qids)
                 rest = []  # (qi, scorer, blocks, bmax)
                 for field, qids in by_field.items():
                     scorer = self._flat_scorer(seg_ord, field)
@@ -411,15 +464,14 @@ class BatchExecutor:
                             rest.append(
                                 (qi, scorer, ids[~keep], bmax[~keep])
                             )
-                        p1_rows.append(scorer.store_rows(ids[keep]))
-                        p1_qids.append(
-                            np.full(int(keep.sum()), qi, dtype=np.int32)
-                        )
+                        work1.append((scorer, ids[keep], np.full(
+                            int(keep.sum()), qi, dtype=np.int32)))
                 per_seg_rest[seg_ord] = rest
-                if p1_rows:
-                    self._count_plan("wand_p1", sum(len(r) for r in p1_rows))
+                if work1:
+                    self._count_plan("wand_p1",
+                                     sum(len(b) for _, b, _ in work1))
                     pending1.extend(
-                        (seg_ord, out) for out in dispatch(p1_rows, p1_qids)
+                        (seg_ord, out) for out in dispatch(work1)
                     )
 
         # materialize phase 1, establish (score, DocAddress) thresholds
@@ -432,7 +484,7 @@ class BatchExecutor:
         pending2 = []
         with debug_time("term.plan_dispatch2"):
             for seg_ord, rest in per_seg_rest.items():
-                rows, qids = [], []
+                work2 = []
                 for qi, scorer, ids, bmax in rest:
                     keep = _phase2_keep(
                         bmax, scorer.dfp.blk_base[ids], seg_ord,
@@ -440,12 +492,13 @@ class BatchExecutor:
                     )
                     if not keep.any():
                         continue
-                    rows.append(scorer.store_rows(ids[keep]))
-                    qids.append(np.full(int(keep.sum()), qi, dtype=np.int32))
-                if rows:
-                    self._count_plan("wand_p2", sum(len(r) for r in rows))
+                    work2.append((scorer, ids[keep], np.full(
+                        int(keep.sum()), qi, dtype=np.int32)))
+                if work2:
+                    self._count_plan("wand_p2",
+                                     sum(len(b) for _, b, _ in work2))
                     pending2.extend(
-                        (seg_ord, out) for out in dispatch(rows, qids)
+                        (seg_ord, out) for out in dispatch(work2)
                     )
         with debug_time("term.collect2", n=len(pending2)):
             self._collect_flat(pending2, per_query)
@@ -497,6 +550,8 @@ class BatchExecutor:
         return self._fused_store
 
     def _ensure_fused_slab(self, seg_ord: int, field: str):
+        if self.mode == "packed":
+            raise dense_only("the fused store")
         fused = self._fused()
         if (seg_ord, field) in fused.slabs:
             return
@@ -1154,6 +1209,8 @@ class BatchExecutor:
 
         from ..ops import probe_scorer as ps
 
+        if self.mode == "packed":
+            raise dense_only("search_boolean_batch")
         Q = len(queries)
         if Q == 0:
             return []
@@ -1512,6 +1569,8 @@ class BatchExecutor:
         """Batched slop-0 phrase and multi-term phrase-prefix queries on
         the device (the fused path; the reference's XLA path is not
         ported). Returns list[list[(score, DocAddress)]]."""
+        if self.mode == "packed":
+            raise dense_only("search_phrase_batch")
         return self._search_phrase_fused(queries, k)
 
     def _search_phrase_fused(self, queries: list, k: int):
@@ -2052,7 +2111,8 @@ class BatchExecutor:
         boolean path; slop-0 phrases and multi-term phrase-prefixes run the
         fused phrase path. Expansion sub-query results merge by
         dedup-keep-max. Every other query runs on the host engine; the
-        phrase-family ones among them count in `host_routed`.
+        phrase-family ones among them count in `host_routed`. Packed mode
+        routes as `_search_batch_packed` says.
         Returns list[list[(score, DocAddress)]]."""
         from ..collector import TopDocs
         from ..query import (
@@ -2062,6 +2122,8 @@ class BatchExecutor:
             PhraseQuery,
         )
 
+        if self.mode == "packed":
+            return self._search_batch_packed(queries, k)
         n_orig = len(queries)
         results: list = [None] * n_orig
         queries = list(queries)
@@ -2129,6 +2191,39 @@ class BatchExecutor:
                 results[i] = hits[:k]
             else:
                 results[i] = answer(i)
+        return results
+
+    def _search_batch_packed(self, queries: list, k: int):
+        """`search_batch` in packed mode, routed as the reference routes it
+        with its fused chain off (`tantivy_tpu/parallel/__init__.py:1589`,
+        Pallas mode off): plain `TermQuery`s run `search_term_batch`;
+        boolean(term) queries on one field and slop-0 phrases would reach
+        the dense-only scorers, so the batch raises; nothing is expanded,
+        and every other query (boosted terms, booleans over several fields,
+        dismax, phrase-prefixes, sloppy phrases, ...) runs on the host
+        engine, the phrase-family ones counted in `host_routed`."""
+        from ..collector import TopDocs
+        from ..query import PhrasePrefixQuery, PhraseQuery, TermQuery
+
+        for q in queries:
+            if self._bool_device_eligible(q) and len(
+                    {self._term_clause(s)[0].term.field
+                     for _, s in q.clauses}) == 1:
+                raise dense_only("a boolean(term) query")
+            if self._phrase_device_eligible(q):
+                raise dense_only("a slop-0 phrase query")
+        term_ids = [i for i, q in enumerate(queries)
+                    if isinstance(q, TermQuery)]
+        results: list = [None] * len(queries)
+        for i, hits in zip(term_ids, self.search_term_batch(
+                [queries[i].term for i in term_ids], k)):
+            results[i] = hits
+        for i, q in enumerate(queries):
+            if results[i] is None:
+                if isinstance(q, (PhraseQuery, PhrasePrefixQuery)):
+                    with self._stats_lock:
+                        self.host_routed += 1
+                results[i] = self.searcher.search(q, TopDocs(k))
         return results
 
     def _worker_streams(self, n: int) -> list:
@@ -2199,9 +2294,10 @@ class BatchExecutor:
         """Prepare what batches shaped like `queries_hint` need before the
         first one arrives: the fused slabs of the hint's fields on every
         segment, the position store when the hint holds phrases, and, on
-        CUDA, every kernel library (`ops/_build.load`, up to `concurrency`
-        nvcc builds at once), so the first batch pays neither uploads nor
-        builds.
+        CUDA, every kernel library of the mode (`ops/_build.load`, up to
+        `concurrency` nvcc builds at once), so the first batch pays neither
+        uploads nor builds. In packed mode: the hint's fields' packed
+        mirrors instead of slabs, and no position store.
 
         The reference compiles a grid of Mosaic kernel shapes here (`k` and
         `levels` size that grid). The port's kernels take every shape from
@@ -2229,15 +2325,20 @@ class BatchExecutor:
                 phrases = True
         for seg_ord in range(len(self.searcher.segment_readers())):
             for f in sorted(fields):
-                self._ensure_fused_slab(seg_ord, f)
-        fused = self._fused().ready()
-        if phrases and fused.slabs:
-            fused.ensure_positions()
+                if self.mode == "packed":
+                    self._flat_scorer(seg_ord, f)
+                else:
+                    self._ensure_fused_slab(seg_ord, f)
+        if self.mode == "dense":
+            fused = self._fused().ready()
+            if phrases and fused.slabs:
+                fused.ensure_positions()
         if self.device.type == "cuda":
+            kernels = _MODE_KERNELS[self.mode]
             with cf.ThreadPoolExecutor(
-                    max_workers=max(1, min(concurrency, len(_build.KERNELS)))
+                    max_workers=max(1, min(concurrency, len(kernels)))
             ) as pool:
-                list(pool.map(_build.load, _build.KERNELS))
+                list(pool.map(_build.load, kernels))
         return 0
 
     # ------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port stands alone: it imports torch, never jax, and nothing of
 `tantivy_tpu`. Importing every module of `tantivy_tpu_torch`, and running
-its phrase path, its per-segment boolean path and the rest of its
-executor (term batches, pipelined and sharded batches, count, agg, the
-warmer) on the CPU, must leave no `jax` and no `tantivy_tpu` /
+its phrase path, its per-segment boolean path, the rest of its executor
+(term batches, pipelined and sharded batches, count, agg, the warmer) and
+its packed mode on the CPU, must leave no `jax` and no `tantivy_tpu` /
 `tantivy_tpu.*` module in `sys.modules`; those run in a fresh interpreter,
 because this test process has already imported both (tests/conftest.py). A static check parses every `.py` file of the
 port, and `chip_smoke.py`, and fails on any import of `tantivy_tpu`."""
@@ -146,6 +146,33 @@ assert ex.agg_batch([req]) == [
 """ + LOADED
 
 
+#: packed mode (K5's twin over the packed mirrors) and its warmer on the CPU
+PACKED_RUN = """
+import sys
+import tantivy_tpu_torch as tt
+from tantivy_tpu_torch.index import ReloadPolicy
+from tantivy_tpu_torch.parallel import DeviceSearchWarmer
+
+b = tt.Schema.builder()
+b.add_text_field("body", tt.TEXT)
+index = tt.Index.create_in_ram(b.build())
+w = index.writer_for_tests()
+for i in range(600):
+    w.add_document(tt.Document(body=f"a{i % 7} b{i % 5} a{i % 3}"))
+w.commit()
+w.close()
+warmer = DeviceSearchWarmer(["body"], device="cpu", mode="packed")
+searcher = index.reader(ReloadPolicy.MANUAL, warmers=[warmer]).searcher()
+ex = tt.BatchExecutor.for_searcher(searcher, device="cpu", mode="packed")
+assert ex is searcher._warm_executor and ex._fused().cstore is None
+terms = [tt.Term.from_field_text("body", f"a{i}") for i in range(7)]
+queries = [tt.TermQuery(t) for t in terms]
+want = [searcher.search(q, tt.TopDocs(5)) for q in queries]
+assert ex.search_term_batch(terms, 5) == want
+assert ex.search_batch(queries, 5) == want
+""" + LOADED
+
+
 def _run(program, *args):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -171,6 +198,10 @@ def test_probe_path_runs_without_jax():
 
 def test_executor_surface_runs_without_jax():
     _run(SURFACE_RUN)
+
+
+def test_packed_mode_runs_without_jax():
+    _run(PACKED_RUN)
 
 
 def _imports_reference(node) -> bool:
