@@ -6,11 +6,12 @@
 Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
    card's name and power limit;
-2. build: compiles the group-probe, phrase-probe, windowed-probe and
-   packed flat-scorer kernels from `tantivy_tpu_torch/csrc` with nvcc into
-   `build/kernels/`, all at once, and prints what ptxas reports for each (registers, shared memory,
-   spills) and each kernel's threads, shared memory per CTA and CTAs
-   resident per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`);
+2. build: compiles the group-probe, phrase-probe, windowed-probe, packed
+   flat-scorer and deep-probe kernels from `tantivy_tpu_torch/csrc` with
+   nvcc into `build/kernels/`, all at once, and prints what ptxas reports
+   for each (registers, shared memory, spills) and each kernel's threads,
+   shared memory per CTA and CTAs resident per SM
+   (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`);
 3. index: a Zipf corpus (one `body` TEXT field, windows of 20-100 tokens
    over a 30,000-word token stream built from the seed), committed in 4
    segments;
@@ -23,12 +24,13 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    prints per-suite QPS, p50 batch latency and how many (query, segment)
    plans the planner sent to the host engine, by reason;
 5. probe path: `executor.search_boolean_batch` (the per-segment Block-WAND
-   path: the windowed-probe kernel and the deep per-lane probe) on the
+   path: the windowed-probe kernel K3 and the deep-probe kernel K4) on the
    term (each query wrapped as a one-clause union), AND, OR and 3-4 clause
    logs, one warm and TIMED_BATCHES timed batches each, with every launch
-   counter reset just before and read just after; prints per suite QPS,
-   p50, windowed-probe launches per rung, deep-path launches and host
-   plans, then the phase's peak device memory;
+   counter reset just before and read just after (K4's launches must equal
+   the planner's `probe_deep` count); prints per suite QPS, p50,
+   windowed-probe launches per rung, deep-path launches and host plans,
+   then the phase's peak device memory;
 6. exactness: sampled queries of every suite of both paths must give the
    host engine's hits (DocAddresses, order and f32 score bits);
 6a. pipelined: `executor.search_batches(..., pipeline=PIPELINE)` over the
@@ -39,8 +41,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
 6b. term batches: `executor.search_term_batch` (the flat scorer, plain
    torch over the fused store) on the term log, one warm and TIMED_BATCHES
    timed batches; sampled hits must equal the host engine's; prints QPS,
-   p50 and the flat scorer's device ms over one batch's calls (CUDA
-   events);
+   p50 and the flat scorer's device ms over one batch's calls
+   (torch.profiler);
 6c. packed term batches: a packed-mode executor (`BatchExecutor(searcher,
    device="cuda", mode="packed")`: the postings stay bit-packed on the card
    and the packed flat-scorer kernel K5 decodes them per query) runs the
@@ -48,9 +50,9 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    `search_term_batch`, with the counters reset just before and read just
    after; hits must equal the dense term batches' list for list and sampled
    hits the host engine's; every K5 chunk of one timed batch is replayed
-   through the kernel and its twin (bitwise) between CUDA events; prints
-   QPS, p50, K5's launches and ms per batch, and the packed mirror's device
-   bytes beside the fused store's cstore bytes;
+   through the kernel and its twin (bitwise) and timed (`_device_ms`);
+   prints QPS, p50, K5's launches and ms per batch, and the packed mirror's
+   device bytes beside the fused store's cstore bytes;
 6d. sharded: `ShardedSearcher(searcher, [cuda:0, cuda:0])` (two segments a
    shard) over the term, AND, OR and phrase logs, with the counters reset
    just before and read just after; hits must equal the single executor's;
@@ -68,24 +70,31 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    rung seen) and synthetic chunks at the largest tiers (one per kernel,
    and a second windowed-probe chunk at W = 8,192, kw = 64, T = 4) run
    through the kernel and its plain PyTorch twin on the card; scores must
-   be bitwise equal and docs equal; prints both times and the bound;
+   be bitwise equal and docs equal; prints both times (the kernel's device
+   time from torch.profiler, the twin's between CUDA events) and the
+   bound;
    then each synthetic hard case of `ops/kernel_cases.py` (1,024 tied
    survivors, 16 clauses, sub-windows of up to 255 rows, wide windows
    with lane docs in every row, windows at the store's end) at
    kk = 1, 10 and 128 through the group-probe or windowed-probe kernel and
-   its twin, bitwise, and each packed hard case (every bit width, a field
-   without freqs) at kk = 1, 10 and 128 through K5 and its twin;
+   its twin, bitwise, each deep hard case (a region at the reference's
+   search-depth edge, 16 clauses) through K4 and its twin, and each packed
+   hard case (every bit width, a field without freqs, every lane tied) at
+   kk = 1, 10 and 128 through K5 and its twin; then every deep chunk of
+   the probe path through K4 and its twin, bitwise, with the largest
+   chunk's kernel and twin ms and bound;
 8. per batch: the real chunks one timed batch of each suite of both paths
-   launched, replayed through their kernel, each chunk timed between CUDA
-   events; prints per kernel and suite the launches per timed batch, the
-   kernel ms summed over the chunks, the bytes they must move, the bound
+   launched, replayed through their kernel; prints per kernel and suite
+   the launches per timed batch, the kernel's device ms over the chunks
+   (torch.profiler's kernel durations), the bytes they must move, the bound
    (those bytes at the card's memory rate; the kernels do no tensor-core
    work), the share of the bound the kernel reaches and its occupancy
    (CTAs resident per SM, threads and shared memory per CTA); with
    `--baseline NAME=DIR`, every chunk (and each synthetic chunk) also runs
    through the kernels built from the sources in DIR, an earlier tree's
    `tantivy_tpu_torch/csrc`, and their ms and the chunks whose output
-   differs from the current kernel's are printed beside;
+   differs from the current kernel's are printed beside (and the largest
+   packed and deep chunks' ms through those kernels);
 9. with `--profile PATH` only: one more fresh batch per timed suite of
    both paths, and of the term log through the dense and the packed
    executor's `search_term_batch`, with the engine's host spans and
@@ -339,6 +348,7 @@ def launch_counts() -> dict:
     """Every kernel's launch counter, by kernel name."""
     from tantivy_tpu_torch.ops import (
         bool_probe,
+        deep_probe,
         group_probe,
         packed_flat,
         phrase_probe,
@@ -347,7 +357,8 @@ def launch_counts() -> dict:
     return {"group_probe": group_probe.launches,
             "phrase_probe": phrase_probe.launches,
             "bool_probe": bool_probe.launches,
-            "packed_flat": packed_flat.launches}
+            "packed_flat": packed_flat.launches,
+            "deep_probe": deep_probe.launches}
 
 
 def build_kernel(name: str, src_dir: str, tag: str):
@@ -558,8 +569,8 @@ def run_pipelined(executor, logs, answered) -> dict:
 def run_term_batches(executor, searcher, logs, seed: int) -> dict:
     """`search_term_batch` on the term log: one warm batch, then
     TIMED_BATCHES timed ones; sampled hits must equal the host engine's.
-    The flat scorer's calls of the first timed batch are replayed between
-    CUDA events for its device ms."""
+    The flat scorer's calls of the first timed batch are replayed for its
+    device ms (`_device_ms`)."""
     import tantivy_tpu_torch as tt
     from tantivy_tpu_torch.ops.flat_scorer import flat_topk
 
@@ -580,7 +591,7 @@ def run_term_batches(executor, searcher, logs, seed: int) -> dict:
     calls = [rec["args"] for rec in batch_log if rec["kind"] == "flat"]
     if not calls:
         raise AssertionError("the term batch made no flat scorer call")
-    flat_ms = sum(_event_ms(lambda a=a: flat_topk(*a)) for a in calls)
+    flat_ms = _device_ms([lambda a=a: flat_topk(*a) for a in calls])
     return {"qps": qps, "p50_ms": p50_ms, "flat_calls": len(calls),
             "flat_items": sum(int(a[1].shape[0]) for a in calls),
             "flat_ms": flat_ms, "sampled": EXACT_SAMPLE, "pairs": pairs}
@@ -641,22 +652,24 @@ def run_packed_term_batches(searcher, logs, dense_pairs, seed: int) -> dict:
 
 def packed_flat_vs_twin(batch_log) -> dict:
     """Every K5 call of one packed term batch through the kernel and its
-    twin: bitwise equal, each timed between CUDA events, with the bytes it
-    must move. Returns the sums over the batch and the largest chunk's
-    (W, kernel ms, twin ms, bytes)."""
+    twin: bitwise equal, the kernel timed by `_device_ms` and the twin
+    between CUDA events, with the bytes it must move. Returns the sums over
+    the batch and the largest chunk's (W, kernel ms, twin ms, bytes) and
+    kernel call."""
     max_err, chunks = 0.0, []
     calls = [rec["args"] for rec in batch_log if rec["kind"] == "packed_flat"]
     for i, args in enumerate(calls):
         kern, twin = packed_flat_calls(args)
         err, _ = _compare(f"packed_flat chunk {i}", kern, twin)
         max_err = max(max_err, err)
-        chunks.append((int(args[1].shape[0]), _event_ms(kern),
-                       _event_ms(twin), packed_flat_bytes(args)))
+        chunks.append((int(args[1].shape[0]), _device_ms([kern]),
+                       _time_ms(twin, 3), packed_flat_bytes(args), kern))
+    big = max(chunks, key=lambda c: c[0])
     return {"chunks": len(calls), "items": sum(c[0] for c in chunks),
-            "ms": sum(c[1] for c in chunks),
+            "ms": _device_ms([c[4] for c in chunks]),
             "twin_ms": sum(c[2] for c in chunks),
             "bytes": sum(c[3] for c in chunks), "max_abs_err": max_err,
-            "big_chunk": max(chunks)}
+            "big_chunk": big[:4], "big_call": big[4]}
 
 
 def run_sharded(searcher, logs, answered, devices=SHARD_DEVICES) -> dict:
@@ -926,6 +939,18 @@ def bool_calls(rec, rows):
             lambda: bool_probe_ref(*args, **kw))
 
 
+def deep_calls(rec, rows=None):
+    """(kernel, twin) no-argument calls of kernel K4 on one chunk."""
+    from tantivy_tpu_torch.ops.deep_probe import deep_probe, deep_probe_ref
+
+    args = (rec["rows"] if rows is None else rows, *rec["tables"],
+            rec["cstore"], rec["blk_last"])
+    kw = dict(num_queries=rec["num_queries"], kk=min(rec["k"], 128),
+              n_iters=rec["n_iters"])
+    return (lambda: deep_probe(*args, **kw),
+            lambda: deep_probe_ref(*args, **kw))
+
+
 # -- the least bytes each kernel must move ------------------------------
 #
 # Each counter takes one chunk as the launch log recorded it and counts
@@ -934,7 +959,8 @@ def bool_calls(rec, rows):
 # cstore window rows (docs and tfs) or postore sub-ranges (position and
 # owner), and the [W, kk] scores and docs. The cstore and postore ranges
 # are those the kernel reads, computed from the chunk's real rows as the
-# kernel computes them.
+# kernel computes them. K4's probes read a few words of rows spread over
+# wide regions, so its counter counts the 32-byte sectors they load.
 
 
 def _covered(n: int, lo, hi) -> np.ndarray:
@@ -1068,6 +1094,101 @@ def bool_probe_bytes(rec, rows) -> int:
             + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
 
 
+#: bytes a device memory load moves at least (one sector)
+SECTOR = 32
+#: 4-byte words of one sector, and sectors of one 384-word cstore row
+SECTOR_WORDS = SECTOR // 4
+ROW_SECTORS = 384 // SECTOR_WORDS
+
+
+def lower_bound4_reads(keys, lo, n, doc):
+    """K4's `lower_bound4` (csrc/deep_probe.cu) over many probes at once:
+    the first index i in [lo, lo + n) with keys[i] >= doc, or lo + n, and
+    the indices of every key its steps load (3 pivots a step, a quarter
+    kept). `lo`, `n` and `doc` are int64 tensors of one length."""
+    import torch
+
+    lo, n, reads = lo.clone(), n.clone(), []
+    while bool((n > 0).any()):
+        on = n > 0
+        q = (n + 3) >> 2
+        k = torch.zeros_like(n)
+        for i in (1, 2, 3):
+            use = on & (i * q <= n)
+            idx = lo + i * q - 1
+            reads.append(idx[use])
+            below = keys[idx.clamp(0, keys.numel() - 1)].long() < doc
+            k += (use & below).long()
+        lo = torch.where(on, lo + k * q, lo)
+        n = torch.where(on, torch.where((k < 3) & ((k + 1) * q <= n),
+                                        q - 1, n - k * q), n)
+    return lo, (torch.cat(reads) if reads else lo[:0])
+
+
+def probe_row_sectors(cstore, row, doc):
+    """The cstore sectors `probe_row` (csrc/row_probe.cuh) loads to probe
+    each doc in its row: two steps of 3 pivots (the 32-doc block, then the
+    8-doc octet), then the octet's 8 docs and their 8 tfs (one sector
+    each). `row` and `doc` are int64 tensors of one length."""
+    import torch
+
+    flat = cstore.view(-1)
+    base = torch.zeros_like(row)
+    out = []
+    for span in (32, 8):
+        k = torch.zeros_like(row)
+        for i in (1, 2, 3):
+            w = base + i * span - 1
+            out.append(row * ROW_SECTORS + w // SECTOR_WORDS)
+            k += (flat[row * 384 + w].long() < doc).long()
+        base += k * span
+    out.append(row * ROW_SECTORS + base // SECTOR_WORDS)
+    out.append(row * ROW_SECTORS + (128 + base) // SECTOR_WORDS)
+    return torch.cat(out)
+
+
+def deep_probe_bytes(rec, rows) -> int:
+    """Kernel K4: the distinct 32-byte sectors its probes load, each once,
+    emulated as the kernel runs them: each real item's own row (docs, tfs,
+    cachev: 48 sectors); for each live lane and each other clause with a
+    region, the `blk_last` sectors of every step of `lower_bound4` and,
+    when it lands inside the region, the row sectors `probe_row` loads.
+    Sectors are counted from the start of `cstore` and `blk_last` (torch
+    allocations start on a 512-byte boundary)."""
+    import torch
+
+    cstore, blk_last = rec["cstore"], rec["blk_last"]
+    nb = cstore.shape[0]
+    r = rows.to(cstore.device).long()
+    bid, q, lcl = r[:, 0], r[:, 1], r[:, 2]
+    real = (q >= 0) & (q < rec["num_queries"]) & (bid >= 0) & (bid < nb)
+    bid, q, lcl = bid[real], q[real], lcl[real]
+    own = cstore[bid]
+    docs = own[:, :128].long()
+    lane_ok = (docs != 2**31 - 1) & ~own[:, 256:].view(torch.float32).isnan()
+    member = torch.unique(bid)
+    row_sec = [(member[:, None] * ROW_SECTORS
+                + torch.arange(ROW_SECTORS, device=bid.device)).view(-1)]
+    last_sec = []
+    cl_start = rec["tables"][2].to(bid.device).long()
+    cl_len = rec["tables"][3].to(bid.device).long()
+    for t in range(cl_start.shape[1]):
+        s = cl_start[q, t]
+        e = torch.minimum(s + cl_len[q, t], torch.full_like(s, nb))
+        probed = (lcl != t) & (s >= 0) & (e > s)
+        item, lane = torch.nonzero(lane_ok & probed[:, None], as_tuple=True)
+        d, s, e = docs[item, lane], s[item], e[item]
+        row, reads = lower_bound4_reads(blk_last, s, e - s, d)
+        last_sec.append(reads // SECTOR_WORDS)
+        hit = row < e
+        row_sec.append(probe_row_sectors(cstore, row[hit], d[hit]))
+    n_sec = torch.unique(torch.cat(row_sec)).numel()
+    if last_sec:
+        n_sec += torch.unique(torch.cat(last_sec)).numel()
+    return (SECTOR * n_sec
+            + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
+
+
 def packed_flat_bytes(args) -> int:
     """Kernel K5: each distinct block's packed doc and tf words (16 bytes
     per bit of width) and table row (32 bytes), the alive byte of each
@@ -1117,26 +1238,39 @@ def chunk_work(rec):
     elif rec["kind"] == "packed_flat":
         yield ("packed_flat", packed_flat_calls(rec["args"])[0],
                packed_flat_bytes(rec["args"]))
+    elif rec["kind"] == "deep":
+        yield ("deep_probe", deep_calls(rec)[0],
+               deep_probe_bytes(rec, rec["rows"]))
     else:
         yield ("bool_probe", bool_calls(rec, rec["rows"])[0],
                bool_probe_bytes(rec, rec["rows"]))
 
 
-def _event_ms(fn, reps: int = 3) -> float:
-    """Median device time of one call of `fn`, between two CUDA events."""
+def _device_ms(calls, reps: int = 3) -> float:
+    """Device time of one pass over `calls` (no-argument calls), from
+    torch.profiler: the summed durations of the CUDA kernels and copies
+    they run, averaged over `reps` passes after a warm one. CUDA events
+    around a single call also hold the host time between its events, the
+    wrapper's checks and allocations (tens of microseconds), which a
+    kernel of a few microseconds cannot hide."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in calls:
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
+    if not total:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total / reps / 1e3
 
 
 def _same(a, b) -> bool:
@@ -1158,67 +1292,66 @@ def occupancy_text(occ: dict) -> str:
 
 def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
     """Per kernel and suite: the real chunks of one timed batch replayed
-    through the kernel, each chunk timed between CUDA events; the kernel ms
-    summed over the batch's chunks, the bytes they must move, the bound
+    through the kernel; the kernel's device ms over the batch's chunks
+    (`_device_ms`, torch.profiler); the bytes the chunks must move, the bound
     (those bytes at the card's memory rate) and the share of the bound the
-    kernel reaches, beside the launches per timed batch and the kernel's
-    occupancy (`occ`, from `occupancy()`). `baselines` maps
-    a name to {kernel: library}: each chunk also runs through those, in
-    turn with the current kernel, and their ms per batch and the chunks
-    whose output differs from the current kernel's are kept."""
+    device ms reach, beside the launches per timed batch and the kernel's
+    occupancy (`occ`, from `occupancy()`). `baselines` maps a name to
+    {kernel: library}: the chunks also run through those, timed between
+    two passes of the current kernel (whose ms is the mean of both), and
+    the chunks whose output differs from the current kernel's are
+    counted."""
     out = {}
     for suite, tm in timings.items():
-        per = {}
+        work = {}
         for rec in tm["batch_log"]:
             for name, call, n_bytes in chunk_work(rec):
-                acc = per.setdefault(name, {"ms": 0.0, "bytes": 0,
-                                            "chunks": 0, "baseline_ms": {},
-                                            "baseline_differs": {}})
-                want = call()
-                acc["ms"] += _event_ms(call)
-                for tag, libs in baselines.items():
-                    if libs.get(name) is None:
-                        continue
-                    with kernel_lib(name, libs[name]):
-                        acc["baseline_ms"][tag] = (
-                            acc["baseline_ms"].get(tag, 0.0) + _event_ms(call))
-                        differs = not _same(call(), want)
-                    acc["baseline_differs"][tag] = (
-                        acc["baseline_differs"].get(tag, 0) + differs)
-                acc["bytes"] += n_bytes
-                acc["chunks"] += 1
-        for name, acc in per.items():
-            ms, n_bytes, chunks = acc["ms"], acc["bytes"], acc["chunks"]
+                w = work.setdefault(name, {"calls": [], "bytes": 0})
+                w["calls"].append(call)
+                w["bytes"] += n_bytes
+        for name, w in work.items():
+            calls, n_bytes = w["calls"], w["bytes"]
+            wants = [call() for call in calls]
+            first = _device_ms(calls)
+            base_ms, differs = {}, {}
+            for tag, libs in baselines.items():
+                if libs.get(name) is None:
+                    continue
+                with kernel_lib(name, libs[name]):
+                    base_ms[tag] = _device_ms(calls)
+                    differs[tag] = sum(not _same(call(), want)
+                                       for call, want in zip(calls, wants))
+            ms = (first + _device_ms(calls)) / 2 if base_ms else first
             b = bound_ms(n_bytes)
             out.setdefault(name, {})[suite] = {
                 "launches_per_batch": tm["launches_per_batch"].get(name, 0),
-                "chunks": chunks, "ms": ms, "bytes": n_bytes,
-                "bound_ms": b, "share": b / ms if ms else 0.0,
-                **({"baseline_ms": acc["baseline_ms"],
-                    "baseline_differs": acc["baseline_differs"]}
-                   if acc["baseline_ms"] else {}),
+                "chunks": len(calls), "ms": ms,
+                "bytes": n_bytes, "bound_ms": b, "share": b / ms,
+                **({"baseline_ms": base_ms, "baseline_differs": differs}
+                   if base_ms else {}),
             }
-            base = "".join(
-                f"; {tag} {bms:.3f} ms ({acc['baseline_differs'][tag]} "
-                f"chunks differ)" for tag, bms in acc["baseline_ms"].items())
+            base = "".join(f"; {tag} {bms:.4f} ms ({differs[tag]} chunks "
+                           "differ)" for tag, bms in base_ms.items())
             print(f"per batch {name} {suite}: "
                   f"{tm['launches_per_batch'].get(name, 0):.1f} launches per "
-                  f"timed batch, {chunks} chunks replayed: kernel {ms:.3f} ms,"
-                  f" {n_bytes} bytes, bound {b:.4f} ms, share of bound "
-                  f"{b / ms if ms else 0.0:.4f} ({occupancy_text(occ[name])})"
-                  f"{base}")
+                  f"timed batch, {len(calls)} chunks replayed: kernel "
+                  f"{ms:.4f} ms device time, {n_bytes} bytes, bound "
+                  f"{b:.4f} ms, "
+                  f"share of bound {b / ms:.4f} "
+                  f"({occupancy_text(occ[name])}){base}")
     return out
 
 
-def baseline_synthetic(name: str, kern, baselines: dict) -> dict:
-    """ms of the synthetic chunk's call `kern` through each baseline build
-    of kernel `name` that exists."""
+def baseline_synthetic(name: str, kern, baselines: dict,
+                       what: str = "synthetic") -> dict:
+    """ms of the call `kern` (the synthetic chunk's, or `what`) through
+    each baseline build of kernel `name` that exists."""
     out = {}
     for tag, libs in baselines.items():
         if libs.get(name) is not None:
             with kernel_lib(name, libs[name]):
-                out[tag] = _time_ms(kern, 20)
-            print(f"baseline {tag} {name} synthetic: {out[tag]:.3f} ms")
+                out[tag] = _device_ms([kern], 20)
+            print(f"baseline {tag} {name} {what}: {out[tag]:.4f} ms")
     return out
 
 
@@ -1256,6 +1389,19 @@ def hard_cases_vs_twin() -> None:
             _, n_rep = _compare(name, *calls)
             print(f"kernel==twin {name}: W={rows.shape[0]} "
                   f"T={case['T']} reported={n_rep} bitwise equal")
+    for kind in kc.DEEP_KINDS:
+        case = kc.deep_case(kind)
+        rec = dict(rows=dev(case["rows"]),
+                   tables=tuple(dev(a) for a in case["tables"]),
+                   cstore=dev(case["cstore"].view(np.int32)),
+                   blk_last=dev(case["blk_last"].view(np.int32)),
+                   num_queries=case["num_queries"], n_iters=case["n_iters"])
+        for kk in (1, 10, 128):
+            name = f"deep_probe hard case {kind} kk={kk}"
+            _, n_rep = _compare(name, *deep_calls({**rec, "k": kk}))
+            print(f"kernel==twin {name}: W={case['rows'].shape[0]} "
+                  f"T={case['T']} n_iters={case['n_iters']} "
+                  f"reported={n_rep} bitwise equal")
     for kind in kc.PACKED_KINDS:
         case = kc.packed_case(kind)
         mirror = PackedMirror(*(
@@ -1288,12 +1434,12 @@ def group_probe_vs_twin(log, baselines: dict) -> dict:
     kern, twin = group_calls(rec, rows)
     err, n_rep = _compare("group_probe synthetic", kern, twin)
     max_err = max(max_err, err)
-    ms = _time_ms(kern, 20)
+    ms = _device_ms([kern], 20)
     plain_ms = _time_ms(twin, 3)
     bound = bound_ms(group_probe_bytes(rec, rows))
     print(f"kernel==twin group_probe synthetic: W={rows.shape[0]} "
           f"T={rec['n_clauses']} kk={min(rec['k'], 128)} reported={n_rep} "
-          f"bitwise equal; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+          f"bitwise equal; kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, "
           f"bound {bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
@@ -1334,12 +1480,12 @@ def phrase_probe_vs_twin(log, baselines: dict) -> dict:
     kern, twin = phrase_calls(rec, rr, rows)
     err, n_rep = _compare("phrase_probe synthetic", kern, twin)
     max_err = max(max_err, err)
-    ms = _time_ms(kern, 20)
+    ms = _device_ms([kern], 20)
     plain_ms = _time_ms(twin, 3)
     bound = bound_ms(phrase_probe_bytes(rec, rr, rows))
     print(f"kernel==twin phrase_probe synthetic: W={rows.shape[0]} "
           f"S={rec['n_partners']} slab rows={rr} kk={min(rec['k'], 128)} "
-          f"reported={n_rep} bitwise equal; kernel {ms:.3f} ms, twin "
+          f"reported={n_rep} bitwise equal; kernel {ms:.4f} ms, twin "
           f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
@@ -1379,18 +1525,50 @@ def bool_probe_vs_twin(log, baselines: dict) -> dict:
         kern, twin = bool_calls(rec, rows)
         err, n_rep = _compare(f"bool_probe synthetic kw{kw}", kern, twin)
         max_err = max(max_err, err)
-        ms = _time_ms(kern, 20)
+        ms = _device_ms([kern], 20)
         plain_ms = _time_ms(twin, 3)
         bound = bound_ms(bool_probe_bytes(rec, rows))
         times.append((ms, plain_ms, bound,
                       baseline_synthetic("bool_probe", kern, baselines)))
         print(f"kernel==twin bool_probe synthetic: W={W} kw={kw} T={t} "
               f"kk={min(rec['k'], 128)} reported={n_rep} bitwise equal; "
-              f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
+              f"kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound "
               f"{bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": times[0][0],
             "plain_ms": times[0][1], "bound_ms": times[0][2],
             "baseline_synthetic_ms": times[0][3]}
+
+
+def deep_probe_vs_twin(log, baselines: dict) -> dict:
+    """Every deep chunk of the probe path (its warm and timed batches)
+    through kernel K4 and its twin on the card, bitwise; the largest
+    chunk's kernel ms (`_device_ms`), twin ms (CUDA events) and bound, and
+    the ms of each baseline build of K4 on it."""
+    recs = [r for r in log if r["kind"] == "deep"]
+    if not recs:
+        raise AssertionError("the probe path made no deep launch")
+    max_err, n_rep = 0.0, 0
+    for i, rec in enumerate(recs):
+        err, n = _compare(f"deep_probe chunk {i}", *deep_calls(rec))
+        max_err, n_rep = max(max_err, err), n_rep + n
+    items = sum(int(r["rows"].shape[0]) for r in recs)
+    print(f"kernel==twin deep_probe: {len(recs)} chunks of the probe path "
+          f"({items} items, clause buckets "
+          f"{sorted({r['n_clauses'] for r in recs})}, search depths "
+          f"{sorted({r['n_iters'] for r in recs})}), reported={n_rep} "
+          "bitwise equal")
+    rec = max(recs, key=lambda r: r["rows"].shape[0])
+    kern, twin = deep_calls(rec)
+    ms = _device_ms([kern], 20)
+    plain_ms = _time_ms(twin, 3)
+    bound = bound_ms(deep_probe_bytes(rec, rec["rows"]))
+    print(f"kernel==twin deep_probe largest chunk: W={rec['rows'].shape[0]} "
+          f"T={rec['n_clauses']} kk={min(rec['k'], 128)} bitwise equal; "
+          f"kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound {bound:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "baseline_synthetic_ms": baseline_synthetic(
+                "deep_probe", kern, baselines, "largest chunk")}
 
 
 def profile_layers(executor, packed_executor, stream, seed: int,
@@ -1495,6 +1673,7 @@ def main(argv=None) -> int:
     from tantivy_tpu_torch.ops import (
         _build,
         bool_probe,
+        deep_probe,
         group_probe,
         packed_flat,
         phrase_probe,
@@ -1505,6 +1684,7 @@ def main(argv=None) -> int:
         phrase_probe.launches = 0
         bool_probe.launches = 0
         packed_flat.launches = 0
+        deep_probe.launches = 0
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1586,8 +1766,11 @@ def main(argv=None) -> int:
     stats0 = dict(executor.plan_stats)
     probe_timing, probe_answered = run_probe_path(executor, logs, n_seg)
     launches["bool_probe"] = bool_probe.launches
+    launches["deep_probe"] = deep_probe.launches
     probe_rungs = {kw: executor.plan_stats.get(f"probe_kw{kw}", 0)
                    - stats0.get(f"probe_kw{kw}", 0) for kw in PROBE_RUNGS}
+    probe_deep = (executor.plan_stats.get("probe_deep", 0)
+                  - stats0.get("probe_deep", 0))
     executor.launch_log, probe_log = None, executor.launch_log
     for suite, tm in probe_timing.items():
         print(f"probe suite {suite}: {tm['qps']:.1f} QPS, p50 "
@@ -1596,16 +1779,24 @@ def main(argv=None) -> int:
               f"launches {tm['deep']}; {tm['host_plans']} of {tm['plans']} "
               f"(query, segment) plans ran on the host engine")
     print(f"launches on the probe path: bool_probe {launches['bool_probe']} "
-          f"(by kw {probe_rungs}), group_probe {group_probe.launches}, "
-          f"phrase_probe {phrase_probe.launches}; peak device memory of the "
-          f"probe path {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches["bool_probe"] == 0:
-        raise AssertionError("the probe path launched no bool_probe kernel")
+          f"(by kw {probe_rungs}), deep_probe {launches['deep_probe']} "
+          f"(plan_stats probe_deep {probe_deep}), group_probe "
+          f"{group_probe.launches}, phrase_probe {phrase_probe.launches}; "
+          f"peak device memory of the probe path "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("bool_probe", "deep_probe"):
+        if launches[name] == 0:
+            raise AssertionError(f"the probe path launched no {name} kernel")
+    if launches["deep_probe"] != probe_deep:
+        raise AssertionError(f"deep_probe launched {launches['deep_probe']} "
+                             f"times, the planner counted {probe_deep} deep "
+                             "chunks")
 
     check_exact(searcher, {**answered, **probe_answered}, args.seed)
     by_path = {"main": {"group_probe": launches["group_probe"],
                         "phrase_probe": launches["phrase_probe"]},
-               "probe": {"bool_probe": launches["bool_probe"]}}
+               "probe": {"bool_probe": launches["bool_probe"],
+                         "deep_probe": launches["deep_probe"]}}
 
     def read_counts(path: str, needed) -> None:
         by_path[path] = launch_counts()
@@ -1636,7 +1827,8 @@ def main(argv=None) -> int:
           f"({gpu}); flat scorer (plain torch, no hand-written kernel) "
           f"{term_batch['flat_ms']:.3f} ms device time over the "
           f"{term_batch['flat_calls']} calls ({term_batch['flat_items']} work "
-          f"items) of one batch (CUDA events); {term_batch['sampled']} sampled "
+          f"items) of one batch (torch.profiler); {term_batch['sampled']} "
+          f"sampled "
           f"queries equal to the host engine; launches "
           f"{by_path['term_batch']}")
 
@@ -1653,9 +1845,11 @@ def main(argv=None) -> int:
           f"against the dense term batch's {term_batch['qps']:.1f} QPS, p50 "
           f"{term_batch['p50_ms']:.1f} ms; packed_flat (K5) "
           f"{packed['launches_per_batch']:.1f} launches per timed batch, "
-          f"{packed['ms']:.3f} ms device time over the {packed['chunks']} "
-          f"chunks ({packed['items']} work items) of one batch (CUDA "
-          f"events; twin {packed['twin_ms']:.3f} ms), {packed['bytes']} "
+          f"{packed['ms']:.4f} ms device time over the {packed['chunks']} "
+          f"chunks ({packed['items']} work items) of one batch "
+          f"(torch.profiler; twin {packed['twin_ms']:.3f} ms between CUDA "
+          f"events), "
+          f"{packed['bytes']} "
           f"bytes, bound {bound_ms(packed['bytes']):.4f} ms; every chunk "
           f"equals the twin bitwise; hits equal the dense term batches' and "
           f"{packed['sampled']} sampled queries the host engine; first warm "
@@ -1703,15 +1897,18 @@ def main(argv=None) -> int:
 
     big_w, big_ms, big_twin_ms, big_bytes = packed["big_chunk"]
     print(f"kernel==twin packed_flat largest chunk: W={big_w} bitwise "
-          f"equal; kernel {big_ms:.3f} ms, twin {big_twin_ms:.3f} ms, bound "
+          f"equal; kernel {big_ms:.4f} ms, twin {big_twin_ms:.3f} ms, bound "
           f"{bound_ms(big_bytes):.4f} ms")
     stats = {"group_probe": group_probe_vs_twin(log, baselines),
              "phrase_probe": phrase_probe_vs_twin(log, baselines),
              "bool_probe": bool_probe_vs_twin(probe_log, baselines),
+             "deep_probe": deep_probe_vs_twin(probe_log, baselines),
              "packed_flat": {"max_abs_err": packed["max_abs_err"],
                              "ms": big_ms, "plain_ms": big_twin_ms,
                              "bound_ms": bound_ms(big_bytes),
-                             "baseline_synthetic_ms": {}}}
+                             "baseline_synthetic_ms": baseline_synthetic(
+                                 "packed_flat", packed["big_call"],
+                                 baselines, "largest chunk")}}
     hard_cases_vs_twin()
     per_batch = batch_kernel_times({
         **timing,
@@ -1729,7 +1926,8 @@ def main(argv=None) -> int:
                 "phrase_probe": "tantivy_tpu/ops/pallas_phrase.py:98",
                 "bool_probe": "tantivy_tpu/ops/pallas_probe.py:126",
                 "packed_flat": "tantivy_tpu/ops/decode.py:58 + "
-                               "tantivy_tpu/ops/flat_scorer.py:43"}
+                               "tantivy_tpu/ops/flat_scorer.py:43",
+                "deep_probe": "tantivy_tpu/ops/probe_scorer.py:398"}
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": [{
         "name": name,

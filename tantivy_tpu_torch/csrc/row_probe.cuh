@@ -1,6 +1,7 @@
-// The probe shared by the port's boolean probe kernels (K1 and K3): is a
-// lane's doc in a window of cstore rows of one term region, and with what
-// tf?
+// The probe shared by the port's boolean probe kernels (K1, K3 and K4): is
+// a lane's doc in a window of cstore rows of one term region, and with what
+// tf? (K4 finds its row by a search of its own over the blocks' last docs
+// and uses only `probe_row`.)
 //
 // Precondition (checked where the fused store is built, and the callers
 // clip every window to its region): inside a region docs ascend strictly
@@ -25,32 +26,12 @@ namespace tantivy_port {
 constexpr int kProbeRowWords = 384;  // docs | tfs | bitcast(cachev)
 constexpr int kProbeLanes = 128;
 
-// Probes doc in the rows [a, b) of one region, a < b: returns whether it is
-// there and sets *tf to its tf (0 when absent).
-__device__ __forceinline__ bool probe_window(
-    const int32_t* __restrict__ cstore, int a, int b, int32_t doc,
-    int32_t* tf) {
-  // the row: the last of the window whose fence is <= doc, else the first;
-  // each step keeps a quarter, ceil(log4(b - a)) steps
-  int row = a;
-  int n = b - a;
-  while (n > 1) {
-    const int q = (n + 3) >> 2;
-    int k = 0;
-#pragma unroll
-    for (int i = 1; i <= 3; ++i) {
-      if (i * q < n) {
-        k += __ldg(cstore + (long long)(row + i * q) * kProbeRowWords) <= doc
-                 ? 1
-                 : 0;
-      }
-    }
-    row += k * q;
-    n = min(q, n - k * q);
-  }
+// Probes doc in one cstore row (its 128 ascending docs, then their tfs):
+// returns whether it is there and sets *tf to its tf (0 when absent).
+__device__ __forceinline__ bool probe_row(const int32_t* __restrict__ docs,
+                                          int32_t doc, int32_t* tf) {
   // the doc's lower bound among the row's 128 ascending docs: its 32-doc
   // block, then its 8-doc octet, then the octet itself
-  const int32_t* docs = cstore + (long long)row * kProbeRowWords;
   int base = 0;
 #pragma unroll
   for (int span = 32; span >= 8; span >>= 2) {
@@ -79,6 +60,32 @@ __device__ __forceinline__ bool probe_window(
     }
   }
   return hit;
+}
+
+// Probes doc in the rows [a, b) of one region, a < b: returns whether it is
+// there and sets *tf to its tf (0 when absent).
+__device__ __forceinline__ bool probe_window(
+    const int32_t* __restrict__ cstore, int a, int b, int32_t doc,
+    int32_t* tf) {
+  // the row: the last of the window whose fence is <= doc, else the first;
+  // each step keeps a quarter, ceil(log4(b - a)) steps
+  int row = a;
+  int n = b - a;
+  while (n > 1) {
+    const int q = (n + 3) >> 2;
+    int k = 0;
+#pragma unroll
+    for (int i = 1; i <= 3; ++i) {
+      if (i * q < n) {
+        k += __ldg(cstore + (long long)(row + i * q) * kProbeRowWords) <= doc
+                 ? 1
+                 : 0;
+      }
+    }
+    row += k * q;
+    n = min(q, n - k * q);
+  }
+  return probe_row(cstore + (long long)row * kProbeRowWords, doc, tf);
 }
 
 }  // namespace tantivy_port

@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 )
 
 #: the kernel sources, `csrc/<name>.cu`, one library each
-KERNELS = ("group_probe", "phrase_probe", "bool_probe", "packed_flat")
+KERNELS = ("group_probe", "phrase_probe", "bool_probe", "packed_flat",
+           "deep_probe")
 
 _lock = threading.Lock()
 #: one lock per kernel, so that different kernels build concurrently

@@ -72,7 +72,9 @@ class PackedMirror(NamedTuple):
 
 
 def _concat_widths(arrays, prefix: str, bits, rows):
-    """(words [N] u32 of every width's matrix, per-block word offset)."""
+    """(words [N] u32 of every width's matrix, per-block word offset).
+    A width-w row is 4w words, so every offset is a multiple of 4 words:
+    kernel K5 loads a row's words 8 or 16 bytes at a time."""
     mats = [np.ascontiguousarray(arrays[f"{prefix}_w{w}"],
                                  dtype=np.uint32).reshape(-1)
             for w in _WIDTHS]

@@ -1,8 +1,8 @@
-"""Synthetic launch chunks for the boolean probe kernels K1 (group probe)
-and K3 (windowed probe) and the packed flat scorer K5, made from a seed
-with numpy: the shapes the real launches seldom reach and the kernels'
-designs find hard. The tests hold the
-plain twins against the reference kernels on them, and the card checks
+"""Synthetic launch chunks for the boolean probe kernels K1 (group probe),
+K3 (windowed probe) and K4 (deep probe) and the packed flat scorer K5,
+made from a seed with numpy: the shapes the real launches seldom reach and
+the kernels' designs find hard. The tests hold the plain twins against the
+reference kernels on them, and the card checks
 (`tests/test_torch_*_probe.py`, `chip_smoke.py`) hold the CUDA kernels
 against the twins.
 
@@ -28,6 +28,14 @@ K3 kinds (`bool_case`):
 * "every_row": the wide rung (kw = 64) with lane docs in every row of a
   70-row window, the region's last row included (TERMINATED padding);
 * "store_end": windows that end at the store's last row (kw = 8 or 64).
+K4 kinds (`deep_case`), each lane doc looked up in whole clause regions:
+* "ladder_edge": a partner region of 256 rows, 2^(n_iters - 1) for the
+  search depth n_iters = 9 that the reference picks for it, the widest
+  region that depth covers; lane docs are the region's first and last
+  docs, a doc of every fourth row, docs below and above every region and
+  docs between rows;
+* "t16": 16 clauses, partner regions of 1 to 300 rows (search depth 15),
+  two of them empty (terms the segment lacks), MUST, SHOULD and MUST_NOT.
 K5 kinds (`packed_case`), packed mirrors built from random deltas:
 * "widths": a block of every doc width (0 to 32) at full and short
   lengths, tf rows of every width, words with the top bit set (width-32
@@ -35,7 +43,10 @@ K5 kinds (`packed_case`), packed mirrors built from random deltas:
   last doc is max_doc - 1, a block whose docs are all deleted, blocks
   repeated for one query and padding items;
 * "no_freqs": a field without freqs (every tf 1, no tf words), two
-  field-norm ids, so equal scores straddle every top-kk cut.
+  field-norm ids, so equal scores straddle every top-kk cut;
+* "ties": no freqs and one field-norm id, so every live lane of an item
+  ties with the others and lane order alone decides each cut; two queries
+  weigh 0.0 and -0.0 (all-zero scores of either sign).
 """
 
 from __future__ import annotations
@@ -44,12 +55,14 @@ import numpy as np
 
 from ..postings.format import TERMINATED
 from .fused_store import build_cstore_np
+from .probe_scorer import _iter_bucket
 
 KIND_MUST, KIND_SHOULD, KIND_MUST_NOT, KIND_ABSENT = 0, 1, 2, 3
 
 GROUP_KINDS = ("ties", "t16", "wide", "oversized")
 BOOL_KINDS = ("every_row", "store_end")
-PACKED_KINDS = ("widths", "no_freqs")
+DEEP_KINDS = ("ladder_edge", "t16")
+PACKED_KINDS = ("widths", "no_freqs", "ties")
 _WIDTHS = (0, 1, 2, 4, 8, 16, 32)
 
 #: items of every synthetic chunk
@@ -60,7 +73,8 @@ _MAX_DOC = 1_000_000
 def _store(regions, rng, dead: float):
     """[NB, 384] u32 store holding each sorted doc array of `regions` as one
     term region starting on an 8-row boundary; returns (cstore, region
-    starts, region lengths in rows)."""
+    starts, region lengths in rows, the arrays it was built from: docs and
+    tfs [NB, 128] u32, norm_ids, alive, cache)."""
     docs, tfs, starts, lens = [], [], [], []
     at = 0
     for d in regions:
@@ -80,9 +94,11 @@ def _store(regions, rng, dead: float):
     norm_ids = rng.integers(0, 2, _MAX_DOC).astype(np.uint8)
     alive = rng.random(_MAX_DOC) >= dead
     cache = np.resize(np.array([1.25, 2.5], np.float32), 256)
-    cstore = build_cstore_np(np.concatenate(docs), np.concatenate(tfs),
-                             norm_ids, alive, cache)
-    return cstore, np.array(starts), np.array(lens)
+    docs, tfs = np.concatenate(docs), np.concatenate(tfs)
+    cstore = build_cstore_np(docs, tfs, norm_ids, alive, cache)
+    parts = dict(docs=docs, tfs=tfs, norm_ids=norm_ids, alive=alive,
+                 cache=cache)
+    return cstore, np.array(starts), np.array(lens), parts
 
 
 def _sorted_docs(rng, n: int, pool=None) -> np.ndarray:
@@ -150,7 +166,7 @@ def group_case(kind: str, seed: int = 0) -> dict:
                         for f in rng.uniform(0.3, 1.2, T - 1)]
         else:  # a partner 6x as dense: about 6 rows a member
             partners = [_partner(rng, 6 * n_lane, lane)]
-    cstore, rstart, rlen = _store([lane] + partners, rng,
+    cstore, rstart, rlen, _ = _store([lane] + partners, rng,
                                   dead=0.0 if kind == "ties" else 0.05)
     A = 4 + T
     rows = np.zeros((CHUNK_W, _stride(4 + 9 * T)), np.int32)
@@ -236,7 +252,7 @@ def bool_case(kind: str, kw: int = 64, seed: int = 0) -> dict:
         miss = rng.choice(others, 128 - len(picks), replace=False)
         items.append(np.sort(np.concatenate([np.array(picks, np.uint32),
                                              miss])))
-    cstore, rstart, rlen = _store(items + [partner], rng, dead=0.1)
+    cstore, rstart, rlen, _ = _store(items + [partner], rng, dead=0.1)
     nb = cstore.shape[0]
     cl_weight = np.zeros((Q + 1, T), np.float32)
     cl_kind = np.full((Q + 1, T), KIND_ABSENT, np.int32)
@@ -266,6 +282,90 @@ def bool_case(kind: str, kw: int = 64, seed: int = 0) -> dict:
                 cstore=cstore)
 
 
+def deep_case(kind: str, seed: int = 0) -> dict:
+    """One K4 launch chunk of `kind` (see the module note): `rows` [64, 3]
+    i32 (bid, qid, lcl; items past the real ones have qid = num_queries),
+    `tables` (cl_weight, cl_kind, cl_start, cl_len, cl_shipped, req_must,
+    req_should), `cstore` [NB, 384] u32, `blk_last` [NB] u32 (each row's
+    last doc, TERMINATED for a row without one), `n_iters` (the reference's
+    search depth for the longest region), `T`, `num_queries` and `parts`,
+    the arrays the store was built from. Query q's clause 0 is item q's own
+    row, a one-row region; its other clauses are partner regions shared by
+    every query. Each query has a second item, a row of the first partner
+    region with that clause as its own."""
+    rng = np.random.default_rng(4000 + 17 * seed + DEEP_KINDS.index(kind))
+    if kind == "ladder_edge":
+        T, Q = 3, 8
+        # the first partner spans 2^(9-1) rows: the widest region the
+        # search depth n_iters = 9 covers
+        lens = [256, 40]
+    else:
+        T, Q = 16, 4
+        lens = [int(n) for n in rng.integers(1, 300, T - 1)]
+        lens[0] = 300
+    partners = [_sorted_docs(rng, n * 128 - int(rng.integers(1, 100)))
+                for n in lens]
+    pool = np.setdiff1d(np.arange(_MAX_DOC, dtype=np.uint32),
+                        np.concatenate(partners))
+    items = []
+    for q in range(Q):
+        p0 = partners[0]
+        # the first partner's first and last docs, a doc of every fourth
+        # row, then docs of the other partners; the rest no partner holds
+        # (the pool's first and last docs lie outside every region)
+        picks = [p0[0], p0[-1], pool[0], pool[-1]]
+        picks += [p0[r * 128 + int(rng.integers(0, 128))]
+                  for r in range(1, lens[0] - 1, 4)]
+        for part in partners[1:]:
+            picks += list(rng.choice(part, 3, replace=False))
+        picks = np.unique(np.array(picks, np.uint32))[:100]
+        miss = rng.choice(np.setdiff1d(pool, picks), 128 - len(picks),
+                          replace=False)
+        items.append(np.sort(np.concatenate([picks, miss])))
+    cstore, rstart, rlen, parts = _store(items + partners, rng, dead=0.1)
+    # the store's rows, its padding rows after the last region included
+    docs = parts["docs"] = cstore[:, :128]
+    parts["tfs"] = cstore[:, 128:256]
+    real = docs != TERMINATED
+    blk_last = np.where(real.any(axis=1),
+                        np.where(real, docs, 0).max(axis=1),
+                        TERMINATED).astype(np.uint32)
+    cl_weight = np.zeros((Q + 1, T), np.float32)
+    cl_kind = np.full((Q + 1, T), KIND_ABSENT, np.int32)
+    cl_start = np.zeros((Q + 1, T), np.int32)
+    cl_len = np.zeros((Q + 1, T), np.int32)
+    cl_shipped = np.zeros((Q + 1, T), np.int32)
+    req_must = np.zeros(Q + 1, np.int32)
+    req_should = np.zeros(Q + 1, np.int32)
+    req_must[Q] = 1 << 30
+    rows = np.zeros((CHUNK_W, 3), np.int32)
+    rows[:, 1] = Q
+    for q in range(Q):
+        cl_start[q] = rstart[[q] + list(range(Q, Q + T - 1))]
+        cl_len[q] = rlen[[q] + list(range(Q, Q + T - 1))]
+        # few MUST clauses among 16, or no lane would meet them all
+        kinds = rng.choice([KIND_MUST, KIND_SHOULD, KIND_MUST_NOT], T - 1,
+                           p=[0.3, 0.5, 0.2] if T < 16 else [0.08, 0.8, 0.12])
+        cl_kind[q] = [KIND_SHOULD] + list(kinds)
+        if kind == "t16":
+            # two clauses of terms the segment lacks: empty regions
+            cl_kind[q, -2:] = KIND_ABSENT
+            cl_len[q, -2:] = 0
+        cl_weight[q] = rng.integers(1, 4, T)
+        cl_weight[q, cl_kind[q] > KIND_SHOULD] = 0.0
+        cl_shipped[q, 0] = 1
+        cl_shipped[q, 1] = q % 2
+        req_must[q] = int((cl_kind[q] == KIND_MUST).sum())
+        req_should[q] = 0 if req_must[q] else 1
+        rows[q] = (rstart[q], q, 0)
+        rows[Q + q] = (rstart[Q] + int(rng.integers(0, lens[0])), q, 1)
+    return dict(kind=kind, rows=rows, T=T, num_queries=Q,
+                n_iters=_iter_bucket(int(cl_len.max())),
+                tables=(cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
+                        req_must, req_should),
+                cstore=cstore, blk_last=blk_last, parts=parts)
+
+
 def _packed_rows(rng, bits: int, top_bit: bool) -> np.ndarray:
     """[128] u32 values of width `bits` (top-bit-heavy when asked)."""
     if bits == 0:
@@ -286,7 +386,7 @@ def packed_case(kind: str, seed: int = 0) -> dict:
 
     rng = np.random.default_rng(3000 + 17 * seed + PACKED_KINDS.index(kind))
     max_doc = 40_000
-    freqs = kind != "no_freqs"
+    freqs = kind == "widths"
     # (doc width, length, base, tf width); tf widths cycle over _WIDTHS
     spec = []
     for i, w in enumerate(_WIDTHS):
@@ -309,6 +409,8 @@ def packed_case(kind: str, seed: int = 0) -> dict:
         n_doc += 4 * w
         n_tf += 4 * tw
     norm_ids = rng.integers(0, 256 if freqs else 2, max_doc).astype(np.uint8)
+    if kind == "ties":
+        norm_ids[:] = 0
     alive = rng.random(max_doc) >= 0.1
     alive[dead_base:dead_base + 128] = False
     mirror = (np.concatenate(doc_words).astype(np.uint32),
@@ -325,6 +427,8 @@ def packed_case(kind: str, seed: int = 0) -> dict:
     weights = rng.uniform(0.5, 3.0, Q + 1).astype(np.float32)
     if not freqs:
         weights[:] = weights[0]
+    if kind == "ties":
+        weights[:2] = (0.0, -0.0)
     caches = np.stack([compute_tf_cache(np.float32(a))
                        for a in rng.uniform(5.0, 60.0, Q + 1)])
     return dict(kind=kind, mirror=mirror, blocks=blocks, qids=qids,

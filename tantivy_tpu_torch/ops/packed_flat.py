@@ -46,12 +46,12 @@ _count_lock = threading.Lock()
 CACHE_COLS = 256
 
 
-def packed_flat_ref(doc_words, tf_words, blk_tab, norm_ids, alive, blocks,
-                    qids, weights, caches, *, num_queries: int, kk: int):
-    """Plain PyTorch version of the kernel: the reference's decode and the
-    scoring stage of `flat_topk_kernel`, bit for bit (-inf on dead,
-    deleted and padding lanes and on padding items), then each item's
-    top-kk live lanes by (score desc, lane asc)."""
+def packed_flat_lanes(doc_words, tf_words, blk_tab, norm_ids, alive, blocks,
+                      qids, weights, caches, *, num_queries: int):
+    """Plain PyTorch lane scores of the kernel, before its selection: the
+    reference's decode and the scoring stage of `flat_topk_kernel`, bit for
+    bit (-inf on dead, deleted and padding lanes and on padding items).
+    Returns (scores [W, 128] f32, docs [W, 128] int32)."""
     nb = blk_tab.shape[0]
     max_doc = norm_ids.shape[0]
     valid = (qids >= 0) & (qids < num_queries) & (blocks >= 0) & (blocks < nb)
@@ -64,7 +64,16 @@ def packed_flat_ref(doc_words, tf_words, blk_tab, norm_ids, alive, blocks,
     tf = as_u32(tfs).float()
     scores = weights[q][:, None] * (tf / (tf + norm))
     live = (d != TERMINATED) & valid[:, None] & alive[safe]
-    sc = torch.where(live, scores, float("-inf"))
+    return torch.where(live, scores, float("-inf")), docs
+
+
+def packed_flat_ref(doc_words, tf_words, blk_tab, norm_ids, alive, blocks,
+                    qids, weights, caches, *, num_queries: int, kk: int):
+    """Plain PyTorch version of the kernel: `packed_flat_lanes`, then each
+    item's top-kk live lanes by (score desc, lane asc)."""
+    sc, docs = packed_flat_lanes(doc_words, tf_words, blk_tab, norm_ids,
+                                 alive, blocks, qids, weights, caches,
+                                 num_queries=num_queries)
     th = torch.full((sc.shape[0],), float("-inf"), device=sc.device)
     return group_topk(sc, docs, th, kk)
 

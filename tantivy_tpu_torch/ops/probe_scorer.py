@@ -1,13 +1,14 @@
-"""Planner constants, the merge tails, the deep per-lane probe scorer and
-the per-segment probe dispatch, in torch.
+"""Planner constants, the merge tails, the probe scorers' shared lane
+combine and the per-segment probe dispatch, in torch.
 
 Counterpart of `tantivy_tpu/ops/probe_scorer.py` (which imports jax at the
-top, so the constants are copied here). The merge tails and the deep probe
-scorer (`probe_bool_topk`) were XLA in the reference, not Pallas, so they
-are plain torch ops: torch has no multi-key sort, so keys are packed into
-int64 and combined by chained stable sorts. `dispatch_probe` sends the
-per-segment Block-WAND path's windowed work to kernel K3
-(`ops/bool_probe.py`) and its wide work to `probe_bool_topk`.
+top, so the constants are copied here). The merge tails were XLA in the
+reference, not Pallas, so they are plain torch ops: torch has no multi-key
+sort, so keys are packed into int64 and combined by chained stable sorts.
+`dispatch_probe` sends the per-segment Block-WAND path's windowed work to
+kernel K3 (`ops/bool_probe.py`) and its wide work to kernel K4
+(`ops/deep_probe.py`, the reference's XLA `probe_bool_topk`), whose twins
+share `lane_scores` and the deep twin's `probe_term`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..postings.format import TERMINATED
+from ..utils.trace import debug_time
 
 NEG_INF = np.float32(-np.inf)
 
@@ -254,48 +256,6 @@ def lane_scores(probe, lcl, tfs, cachev, lane_ok, weight, kind, shipped,
     return torch.where(ok, score, float("-inf"))
 
 
-def probe_bool_topk(bids, qid, lcl, cstore, blk_last, cl_weight, cl_kind,
-                    cl_start, cl_len, cl_shipped, req_must, req_should, *,
-                    k: int, num_queries: int, n_iters: int):
-    """The deep per-lane probe scorer, for work items whose clause windows
-    are wider than the widest rung: every lane binary-searches each clause
-    region (`probe_term`). Plain torch: the reference's counterpart is XLA,
-    not a Pallas kernel.
-
-    bids/qid/lcl [W] i64: the items' cstore rows, queries (num_queries =
-    padding) and own clauses; `cstore` [NB, 384] i32 gives each lane's doc,
-    tf and BM25 denominator (NaN = dead or pad), which replace the
-    reference's gathered blocks, `cache[norm_ids]` and `alive`; `blk_last`
-    [NB] i32 is the store's per-block last doc; the tables are those of
-    `bool_probe`, with regions in cstore rows. Returns packed [2, Q, k] i32
-    (score bits | doc)."""
-    w = bids.shape[0]
-    lane_rows = cstore[bids]                                  # [W, 384]
-    docs = lane_rows[:, :128]
-    cachev = lane_rows[:, 256:].view(torch.float32)
-    qc = qid.clamp(max=cl_weight.shape[0] - 1)
-    lane_ok = ((docs != TERMINATED) & ~torch.isnan(cachev)
-               & (qid < num_queries)[:, None])
-    fdoc = docs.reshape(-1)
-    start = cl_start[qc].long().repeat_interleave(128, dim=0)  # [W*128, T]
-    n_blk = cl_len[qc].long().repeat_interleave(128, dim=0)
-
-    def probe(t):
-        found, tf = probe_term(cstore, blk_last, fdoc, start[:, t],
-                               n_blk[:, t], n_iters)
-        return found.view(w, 128), tf.view(w, 128)
-
-    scores = lane_scores(
-        probe, lcl, lane_rows[:, 128:256], cachev, lane_ok, cl_weight[qc],
-        cl_kind[qc], cl_shipped[qc], req_must[qc], req_should[qc],
-    )
-    th = torch.full((w,), float("-inf"), device=cstore.device)
-    row_sc, row_doc = group_topk(scores, docs, th, min(k, 128))
-    return pack_results(
-        *per_query_topk_from_rows(row_sc, row_doc, qid, k, num_queries)
-    )
-
-
 def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
                    k: int, num_queries: int, work_width, log=None,
                    count=None) -> list:
@@ -303,24 +263,26 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
     probe-window width (`work_width`, rows from the 8-aligned window start),
     then chunked by rung. Windowed rungs (kw 2, 8, 64) run kernel K3
     (`bool_probe.bool_probe_topk`); wider items run the deep per-lane
-    `probe_bool_topk`. The reference pads each chunk to its W rung with
-    items of qid = num_queries, which never report; the port launches only
-    the real items.
+    kernel K4 (`deep_probe.deep_probe_topk`). The reference pads each chunk
+    to its W rung with items of qid = num_queries, which never report; the
+    port launches only the real items.
 
     Planning works in the slab's own block ids (the reference's per-field
     store); the slab's `offset` moves block ids, clause regions and window
     starts into the fused store's rows, so the kernels read the same rows
     the reference's per-field store holds. `tables` = cl_* [Q+1, T] and
-    req_must/req_should [Q+1] numpy arrays. When `log` is a list, each K3
-    chunk's exact inputs are appended to it (kind="probe"); `count(kind)`
-    is called once per launch ("probe_kw2", ..., "probe_deep"). Returns
-    packed [2, Q, k] tensors on the store's device."""
+    req_must/req_should [Q+1] numpy arrays. When `log` is a list, each
+    chunk's exact inputs are appended to it (kind="probe" for K3, "deep"
+    for K4); `count(kind)` is called once per launch ("probe_kw2", ...,
+    "probe_deep"). Returns packed [2, Q, k] tensors on the store's
+    device."""
     from .bool_probe import (
         _kw8,
         bool_probe_topk,
         bool_scal_stride,
         compute_jlo,
     )
+    from .deep_probe import ROW_COLS, deep_probe_topk
 
     dfp, off = slab["dfp"], slab["offset"]
     # one store tensor for the whole call (another batch may replace
@@ -329,18 +291,19 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
     dev = cstore.device
     T = tables["cl_weight"].shape[1]
     n_iters = _iter_bucket(int(tables["cl_len"].max(initial=1)))
-    targs = tuple(
-        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        for a in (
-            tables["cl_weight"].astype(np.float32),
-            tables["cl_kind"].astype(np.int32),
-            (tables["cl_start"].astype(np.int64) + off).astype(np.int32),
-            tables["cl_len"].astype(np.int32),
-            tables["cl_shipped"].astype(np.int32),
-            tables["req_must"].astype(np.int32),
-            tables["req_should"].astype(np.int32),
+    with debug_time("probe.tables"):
+        targs = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (
+                tables["cl_weight"].astype(np.float32),
+                tables["cl_kind"].astype(np.int32),
+                (tables["cl_start"].astype(np.int64) + off).astype(np.int32),
+                tables["cl_len"].astype(np.int32),
+                tables["cl_shipped"].astype(np.int32),
+                tables["req_must"].astype(np.int32),
+                tables["req_should"].astype(np.int32),
+            )
         )
-    )
     outs = []
 
     def launch(sel, wkw):
@@ -348,37 +311,52 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
         top = wkw[0] if wkw is not None else _W_LADDER[-1]
         for lo in range(0, len(blocks), top):
             b, q, c = blocks[lo:lo + top], qids[lo:lo + top], cls[lo:lo + top]
+            rows = np.empty((len(b), ROW_COLS if wkw is None
+                             else bool_scal_stride(T)), np.int32)
+            rows[:, 0] = b + off
+            rows[:, 1] = q
+            rows[:, 2] = c
             if wkw is None:
-                outs.append(probe_bool_topk(
-                    *(torch.from_numpy(a.astype(np.int64)).to(dev)
-                      for a in (b + off, q, c)),
-                    cstore, fused.blk_last_device(), *targs, k=k,
-                    num_queries=num_queries, n_iters=n_iters,
-                ))
+                # a store rebuilt meanwhile only appends rows, so the first
+                # rows of its table are this store's
+                blk_last = fused.blk_last_device()[:cstore.shape[0]]
+                with debug_time("probe.upload"):
+                    rows_t = torch.from_numpy(rows).to(dev)
+                if log is not None:
+                    log.append(dict(
+                        kind="deep", rows=rows_t, tables=targs,
+                        cstore=cstore, blk_last=blk_last, k=k,
+                        num_queries=num_queries, n_iters=n_iters,
+                        n_clauses=T,
+                    ))
+                with debug_time("probe.launch_deep", n=len(b)):
+                    outs.append(deep_probe_topk(
+                        rows_t, targs, cstore, blk_last, k=k,
+                        num_queries=num_queries, n_iters=n_iters,
+                    ))
                 kind = "probe_deep"
             else:
                 kw = wkw[1]
-                rows = np.empty((len(b), bool_scal_stride(T)), np.int32)
-                rows[:, 0] = b + off
-                rows[:, 1] = q
-                rows[:, 2] = c
-                rows[:, 3:3 + T] = compute_jlo(
-                    dfp, b, q, tables["cl_start"], tables["cl_len"], kw
-                ) + off
+                with debug_time("probe.jlo", n=len(b)):
+                    rows[:, 3:3 + T] = compute_jlo(
+                        dfp, b, q, tables["cl_start"], tables["cl_len"], kw
+                    ) + off
                 # the reference's legacy windowed path has no per-clause
                 # widths: the wide rung probes its full window
                 rows[:, 3 + T:] = _kw8(kw)
-                rows_t = torch.from_numpy(rows).to(dev)
+                with debug_time("probe.upload"):
+                    rows_t = torch.from_numpy(rows).to(dev)
                 if log is not None:
                     log.append(dict(
                         kind="probe", rows=rows_t, tables=targs,
                         cstore=cstore, kw=kw, k=k,
                         num_queries=num_queries, n_clauses=T,
                     ))
-                outs.append(bool_probe_topk(
-                    rows_t, targs, cstore, k=k,
-                    num_queries=num_queries, kw=kw,
-                ))
+                with debug_time("probe.launch_windowed", n=len(b)):
+                    outs.append(bool_probe_topk(
+                        rows_t, targs, cstore, k=k,
+                        num_queries=num_queries, kw=kw,
+                    ))
                 kind = f"probe_kw{kw}"
             if count is not None:
                 count(kind)

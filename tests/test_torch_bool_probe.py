@@ -1,5 +1,6 @@
 """Kernel K3's plain twin (`bool_probe_lanes` / `bool_probe_ref`), its
-top-k tail and the deep per-lane probe against the reference: the Pallas
+top-k tail and kernel K4's twin (the deep per-lane probe,
+`deep_probe.deep_probe_topk` on the CPU) against the reference: the Pallas
 kernel `pallas_probe._probe_rows` and its wrapper `pallas_bool_topk` in
 interpret mode, and the XLA `probe_scorer.probe_bool_topk`.
 
@@ -26,6 +27,7 @@ from tantivy_tpu.ops import probe_scorer as ref_ps
 from tantivy_tpu.ops.fused_store import build_cstore_np
 from tantivy_tpu.postings.format import TERMINATED
 from tantivy_tpu_torch.ops import bool_probe as bp
+from tantivy_tpu_torch.ops import deep_probe as dp
 from tantivy_tpu_torch.ops import kernel_cases as kc
 from tantivy_tpu_torch.ops import probe_scorer as ps
 from tantivy_tpu_torch.ops.fused_store import FusedStore, _check_region_order
@@ -239,9 +241,10 @@ def test_topk_matches_pallas_bool_topk(cases, kw, T):
 
 @pytest.mark.parametrize("T", [2, 4])
 def test_deep_probe_matches_reference(cases, T):
-    """The port's deep per-lane probe equals the reference's XLA
-    `probe_bool_topk` bit for bit; the port reads lanes, denominators and
-    liveness from the cstore instead of gathered blocks and caches."""
+    """The port's deep per-lane probe (kernel K4's twin with the merge
+    tail) equals the reference's XLA `probe_bool_topk` bit for bit; the
+    port reads lanes, denominators and liveness from the cstore instead of
+    gathered blocks and caches."""
     case = cases[(64, T)]
     k = 7
     cl_weight, cl_kind, cl_start, cl_len, cl_shipped, req_m, req_s = \
@@ -260,10 +263,10 @@ def test_deep_probe_matches_reference(cases, T):
         k=k, num_queries=Q, n_clauses=T, n_iters=n_iters,
     )
     _, tables, cstore = _port_args(case)
-    got = ps.probe_bool_topk(
-        *(torch.from_numpy(a.astype(np.int64)) for a in (b, q, c)), cstore,
-        torch.from_numpy(blk_last.view(np.int32)), *tables, k=k,
-        num_queries=Q, n_iters=n_iters,
+    rows = torch.from_numpy(np.stack([b, q, c], axis=1).astype(np.int32))
+    got = dp.deep_probe_topk(
+        rows, tables, cstore, torch.from_numpy(blk_last.view(np.int32)),
+        k=k, num_queries=Q, n_iters=n_iters,
     )
     want = np.asarray(want)
     assert np.isfinite(want[0].view(np.float32)).sum() > 10

@@ -210,10 +210,16 @@ def test_search_batches_pipelined_parity():
     assert got == want
     assert len(ex.batch_spans) == len(batches)
     assert all(s > 0 for s in ex.batch_spans)
-    jax_got = JaxExecutor(ref).search_batches(batches, 7, pipeline=2)
-    for b, g, j in zip(batches, got, jax_got):
-        for q, gh, jh in zip(b, g, j):
+    # the reference's batches run in sequence first: that builds its
+    # position store, which its pipelined batches would otherwise build
+    # concurrently (a race of the frozen reference, ROADMAP Queue 3)
+    jax_ex = JaxExecutor(ref)
+    jax_seq = [jax_ex.search_batch(b, 7) for b in batches]
+    jax_got = jax_ex.search_batches(batches, 7, pipeline=2)
+    for b, g, j, js in zip(batches, got, jax_got, jax_seq):
+        for q, gh, jh, jsh in zip(b, g, j, js):
             assert bits(gh) == bits(jh), repr(q)
+            assert bits(gh) == bits(jsh), repr(q)
             assert bits(gh) == bits(ref.search(q, tt.TopDocs(7))), repr(q)
     # degenerate pipelines
     assert ex.search_batches([], 7) == []

@@ -75,11 +75,12 @@ assert any(r["kind"] == "phrase" for r in ex.launch_log)
 assert ex.host_routed == 0 and phrase_probe.launches == 0
 """ + LOADED
 
-#: the per-segment Block-WAND path (K3's twin and the deep probe) on the CPU
+#: the per-segment Block-WAND path (the twins of K3 and of K4, the deep
+#: probe) on the CPU
 PROBE_RUN = """
 import sys
 import tantivy_tpu_torch as tt
-from tantivy_tpu_torch.ops import bool_probe
+from tantivy_tpu_torch.ops import bool_probe, deep_probe
 
 b = tt.Schema.builder()
 b.add_text_field("body", tt.TEXT)
@@ -102,7 +103,7 @@ got = ex.search_boolean_batch(queries, 5)
 for q, hits in zip(queries, got):
     assert hits == searcher.search(q, tt.TopDocs(5)), q
 assert ex.plan_stats.get("probe_deep", 0) > 0, ex.plan_stats
-assert bool_probe.launches == 0
+assert bool_probe.launches == 0 and deep_probe.launches == 0
 """ + LOADED
 
 
