@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
    card's name and power limit;
 2. build: compiles the group-probe, phrase-probe, windowed-probe, packed
-   flat-scorer and deep-probe kernels from `tantivy_tpu_torch/csrc` with
+   flat-scorer, deep-probe and per-segment phrase kernels from
+   `tantivy_tpu_torch/csrc` with
    nvcc into `build/kernels/`, all at once, and prints what ptxas reports
    for each (registers, shared memory, spills) and each kernel's threads,
    shared memory per CTA and CTAs resident per SM
@@ -31,8 +32,17 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    the planner's `probe_deep` count); prints per suite QPS, p50,
    windowed-probe launches per rung, deep-path launches and host plans,
    then the phase's peak device memory;
-6. exactness: sampled queries of every suite of both paths must give the
-   host engine's hits (DocAddresses, order and f32 score bits);
+5b. per-segment phrase path: `executor.search_phrase_batch` (the
+   reference's per-segment Block-WAND phrase plan: kernel K6) on the
+   bigram phrase log and on a log of 3- and 4-term phrases, one warm and
+   TIMED_BATCHES timed batches each, with every launch counter reset just
+   before and read just after (K6's launches must equal the planner's
+   `phrase_seg_*` count, and no other kernel may launch); prints per suite
+   QPS and p50 beside the main path's phrase suite (K2), K6 launches per
+   rung and host plans by reason; the bigram suite's hits must equal the
+   main path's phrase suite's list for list;
+6. exactness: sampled queries of every suite of the three paths must give
+   the host engine's hits (DocAddresses, order and f32 score bits);
 6a. pipelined: `executor.search_batches(..., pipeline=PIPELINE)` over the
    timed batches of every main-path suite (all of them in flight, each on
    its own CUDA stream), with the launch counters reset just before and read just after;
@@ -80,13 +90,19 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    its twin, bitwise, each deep hard case (a region at the reference's
    search-depth edge, 16 clauses) through K4 and its twin, and each packed
    hard case (every bit width, a field without freqs, every lane tied) at
-   kk = 1, 10 and 128 through K5 and its twin; then every deep chunk of
-   the probe path through K4 and its twin, bitwise, with the largest
-   chunk's kernel and twin ms and bound;
+   kk = 1, 10 and 128 through K5 and its twin, and each per-segment
+   phrase hard case (leader tf 16, partner tf 256, a 1,024-row window,
+   positions at the postore's end, deleted docs, 8 terms, every lane tied)
+   at kk = 1, 10 and 128 through K6 and its twin; then every deep chunk of
+   the probe path through K4 and its twin and every K6 chunk of one timed
+   batch of each per-segment phrase suite through K6 and its twin,
+   bitwise, each with the largest chunk's kernel and twin ms and bound;
 8. per batch: the real chunks one timed batch of each suite of both paths
    launched, replayed through their kernel; prints per kernel and suite
    the launches per timed batch, the kernel's device ms over the chunks
-   (torch.profiler's kernel durations), the bytes they must move, the bound
+   (torch.profiler's kernel durations), the bytes they must move (K4's
+   and K6's: the 32-byte sectors their probes and position reads load),
+   the bound
    (those bytes at the card's memory rate; the kernels do no tensor-core
    work), the share of the bound the kernel reaches and its occupancy
    (CTAs resident per SM, threads and shared memory per CTA); with
@@ -96,15 +112,16 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    differs from the current kernel's are printed beside (and the largest
    packed and deep chunks' ms through those kernels);
 9. with `--profile PATH` only: one more fresh batch per timed suite of
-   both paths, and of the term log through the dense and the packed
-   executor's `search_term_batch`, with the engine's host spans and
+   both paths, of the phrase log through `search_phrase_batch`, and of
+   the term log through the dense and the packed executor's
+   `search_term_batch`, with the engine's host spans and
    `torch.profiler` on; the
    per-layer breakdown (host span ms, device ms per kernel, idle share)
    goes to PATH as JSON.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, whose `launches_by_path` gives each kernel's
 launches on every path above that resets the counters (main, probe,
-pipelined, term_batch, packed_term_batch, sharded, warmer). The script imports nothing of `tantivy_tpu` or
+phrase_seg, pipelined, term_batch, packed_term_batch, sharded, warmer). The script imports nothing of `tantivy_tpu` or
 jax: the port stands alone.
 """
 
@@ -138,14 +155,17 @@ SYNTH_PROBE = ((65536, 2, 2), (8192, 64, 4))
 PROBE_SUITES = ("term", "and", "or", "multi")
 #: the windowed-probe kernel's rungs (window rows kw)
 PROBE_RUNGS = (2, 8, 64)
+#: the per-segment phrase kernel's rungs (`plan_stats` phrase_seg_<rung>)
+PHRASE_SEG_RUNGS = ("kw8", "kw64", "wide")
 #: device memory rate of one H100 SXM (NVIDIA's data sheet), bytes per second:
 #: the kernels do no tensor-core work, so bytes bound them
 HBM_BYTES_PER_S = 3.35e12
 #: why no library call stands beside the kernels
 NO_LIBRARY = ("no single PyTorch call computes a sorted-set probe, BM25 "
               "scoring and a per-group top-kk over these stores, nor a "
-              "bit-unpack, strict-delta prefix sum, BM25 and per-row top-kk "
-              "over packed postings")
+              "position intersection with them, nor a bit-unpack, "
+              "strict-delta prefix sum, BM25 and per-row top-kk over packed "
+              "postings")
 #: batches in flight in the pipelined pass
 PIPELINE = 3
 #: the suites the sharded pass runs, and its devices (one card: two shards
@@ -307,13 +327,13 @@ def query_logs(stream, seed: int, n: int) -> dict:
     }
 
 
-def long_phrases(stream, seed: int):
-    """One batch of 3- and 4-term phrases from the stream, so the phrase
-    kernel's 3-partner bucket runs too."""
+def long_phrases(stream, seed: int, n: int = BATCH):
+    """`n` 3- and 4-term phrases from the stream (one batch by default),
+    so the phrase kernel's 3-partner bucket runs too."""
     import tantivy_tpu_torch as tt
 
     rng = np.random.default_rng(seed + 4)
-    at = rng.integers(0, len(stream) - 4, BATCH)
+    at = rng.integers(0, len(stream) - 4, n)
     return [tt.PhraseQuery("body", [str(w) for w in stream[i:i + 3 + j % 2]])
             for j, i in enumerate(at)]
 
@@ -352,13 +372,15 @@ def launch_counts() -> dict:
         group_probe,
         packed_flat,
         phrase_probe,
+        phrase_scorer,
     )
 
     return {"group_probe": group_probe.launches,
             "phrase_probe": phrase_probe.launches,
             "bool_probe": bool_probe.launches,
             "packed_flat": packed_flat.launches,
-            "deep_probe": deep_probe.launches}
+            "deep_probe": deep_probe.launches,
+            "seg_phrase": phrase_scorer.launches}
 
 
 def build_kernel(name: str, src_dir: str, tag: str):
@@ -504,6 +526,41 @@ def run_probe_path(executor, logs, n_seg: int):
             "batch_log": batch_log,
         }
         answered[f"probe_{suite}"] = pairs
+    return timing, answered
+
+
+def run_phrase_seg(executor, logs, long_log, n_seg: int):
+    """`search_phrase_batch` (the per-segment phrase path, kernel K6) on
+    the bigram phrase log and on the 3-4 term phrase log: one warm batch,
+    then TIMED_BATCHES fresh batches each. Returns per-suite timings, with
+    the timed batches' K6 launches per rung and host plans by reason, and
+    the (query, hits) pairs of the timed batches."""
+    timing, answered = {}, {}
+    for suite, qlog in (("phrase_seg", logs["phrase"]),
+                        ("phrase_seg34", long_log)):
+        executor.search_phrase_batch(qlog[:BATCH], K)
+        fb0 = dict(executor.fallbacks)
+        stats0 = dict(executor.plan_stats)
+        counts0 = launch_counts()
+        qps, p50_ms, pairs, batch_log = timed_batches(
+            executor.search_phrase_batch, qlog, executor.launch_log
+        )
+        by_reason = {why: n - fb0.get(why, 0)
+                     for why, n in executor.fallbacks.items()
+                     if n != fb0.get(why, 0)}
+        timing[suite] = {
+            "qps": qps,
+            "p50_ms": p50_ms,
+            "k6_by_rung": {r: executor.plan_stats.get(f"phrase_seg_{r}", 0)
+                           - stats0.get(f"phrase_seg_{r}", 0)
+                           for r in PHRASE_SEG_RUNGS},
+            "host_plans": sum(by_reason.values()),
+            "host_by_reason": by_reason,
+            "plans": len(pairs) * n_seg,
+            "launches_per_batch": per_batch_launches(counts0),
+            "batch_log": batch_log,
+        }
+        answered[suite] = pairs
     return timing, answered
 
 
@@ -951,6 +1008,18 @@ def deep_calls(rec, rows=None):
             lambda: deep_probe_ref(*args, **kw))
 
 
+def seg_phrase_calls(rec, rows=None):
+    """(kernel, twin) no-argument calls of kernel K6 on one chunk."""
+    from tantivy_tpu_torch.ops.phrase_scorer import seg_phrase, seg_phrase_ref
+
+    args = (rec["rows"] if rows is None else rows, *rec["tables"],
+            rec["cstore"], rec["postore"], rec["blk_pos"], rec["blk_last"])
+    kw = dict(num_queries=rec["num_queries"], kk=min(rec["k"], 128),
+              kw=rec["kw"], pw=rec["pw"], n_iters=rec["n_iters"])
+    return (lambda: seg_phrase(*args, **kw),
+            lambda: seg_phrase_ref(*args, **kw))
+
+
 # -- the least bytes each kernel must move ------------------------------
 #
 # Each counter takes one chunk as the launch log recorded it and counts
@@ -1125,11 +1194,12 @@ def lower_bound4_reads(keys, lo, n, doc):
     return lo, (torch.cat(reads) if reads else lo[:0])
 
 
-def probe_row_sectors(cstore, row, doc):
-    """The cstore sectors `probe_row` (csrc/row_probe.cuh) loads to probe
-    each doc in its row: two steps of 3 pivots (the 32-doc block, then the
-    8-doc octet), then the octet's 8 docs and their 8 tfs (one sector
-    each). `row` and `doc` are int64 tensors of one length."""
+def probe_row_reads(cstore, row, doc):
+    """`probe_row_at` (csrc/row_probe.cuh) over many probes at once, each
+    doc in its row: (found, tf, lane, the cstore sectors it loads): two
+    steps of 3 pivots (the 32-doc block, then the 8-doc octet), then the
+    octet's 8 docs and their 8 tfs (one sector each). `row` and `doc` are
+    int64 tensors of one length."""
     import torch
 
     flat = cstore.view(-1)
@@ -1144,7 +1214,35 @@ def probe_row_sectors(cstore, row, doc):
         base += k * span
     out.append(row * ROW_SECTORS + base // SECTOR_WORDS)
     out.append(row * ROW_SECTORS + (128 + base) // SECTOR_WORDS)
-    return torch.cat(out)
+    octet = flat[(row * 384 + base)[:, None]
+                 + torch.arange(8, device=row.device)].long()
+    hit = octet == doc[:, None]
+    lane = base + hit.int().argmax(dim=1)
+    return (hit.any(dim=1), flat[row * 384 + 128 + lane].long(), lane,
+            torch.cat(out))
+
+
+def probe_window_reads(cstore, a, b, doc):
+    """`probe_window_at`'s fence search (csrc/row_probe.cuh) over many
+    probes at once, rows [a, b) with a < b: the row it settles on and the
+    cstore word of every fence it loads (3 a step, a quarter kept)."""
+    import torch
+
+    flat = cstore.view(-1)
+    row, n, reads = a.clone(), b - a, []
+    while bool((n > 1).any()):
+        on = n > 1
+        q = (n + 3) >> 2
+        k = torch.zeros_like(n)
+        for i in (1, 2, 3):
+            use = on & (i * q < n)
+            idx = (row + i * q) * 384
+            reads.append(idx[use])
+            k += (use & (flat[idx.clamp(0, flat.numel() - 1)].long()
+                         <= doc)).long()
+        row = torch.where(on, row + k * q, row)
+        n = torch.where(on, torch.minimum(q, n - k * q), n)
+    return row, (torch.cat(reads) if reads else row[:0])
 
 
 def deep_probe_bytes(rec, rows) -> int:
@@ -1181,10 +1279,137 @@ def deep_probe_bytes(rec, rows) -> int:
         row, reads = lower_bound4_reads(blk_last, s, e - s, d)
         last_sec.append(reads // SECTOR_WORDS)
         hit = row < e
-        row_sec.append(probe_row_sectors(cstore, row[hit], d[hit]))
+        row_sec.append(probe_row_reads(cstore, row[hit], d[hit])[3])
     n_sec = torch.unique(torch.cat(row_sec)).numel()
     if last_sec:
         n_sec += torch.unique(torch.cat(last_sec)).numel()
+    return (SECTOR * n_sec
+            + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
+
+
+def _spans(lo, n):
+    """The integers of the ranges [lo, lo + n), concatenated."""
+    import torch
+
+    idx = torch.repeat_interleave(torch.arange(lo.numel(), device=lo.device),
+                                  n)
+    first = torch.cumsum(n, 0) - n
+    return lo[idx] + torch.arange(idx.numel(), device=lo.device) - first[idx]
+
+
+def _pos_sectors(n_pos: int, idx):
+    """The postore sectors holding flat positions `idx` (clamped to the
+    store as the kernel clamps them): position i is word (i >> 7) * 256 +
+    (i & 127)."""
+    idx = idx.clamp(0, n_pos - 1)
+    return ((idx >> 7) * 256 + (idx & 127)) // SECTOR_WORDS
+
+
+def seg_phrase_bytes(rec, rows) -> int:
+    """Kernel K6: the distinct 32-byte sectors it loads, each once,
+    emulated as the kernel runs them: each real item's docs and
+    denominators (32 sectors), the `blk_last` sectors of each term's window
+    search, and for each live lane and term in order until one misses, the
+    window's fence words and `probe_row_at`'s sectors, then on a hit the
+    row's tf sectors before the lane and the row's `blk_pos` entry; for the
+    lanes every term holds, the leader's first min(tf, MAX_P) positions and
+    each other term's positions up to where its cursor stops (in term
+    order, until no leader position is left matching). Sectors count from
+    the start of each tensor (torch allocations start on a 512-byte
+    boundary)."""
+    import torch
+
+    from tantivy_tpu_torch.ops.phrase_scorer import MAX_P
+
+    cstore, blk_last = rec["cstore"], rec["blk_last"]
+    postore, blk_pos = rec["postore"], rec["blk_pos"]
+    dev = cstore.device
+    nb, n_pos = cstore.shape[0], postore.shape[0] * 128
+    pos_flat = postore.view(-1)
+    kw, pw = rec["kw"], rec["pw"]
+    q_weight, cl_start, cl_len, cl_shift = (t.to(dev) for t in rec["tables"])
+    T = cl_start.shape[1]
+    r = rows.to(dev).long()
+    bid, q, lead = r[:, 0], r[:, 1], r[:, 2]
+    real = (q >= 0) & (q < rec["num_queries"]) & (bid >= 0) & (bid < nb)
+    bid, q, lead = bid[real], q[real], lead[real].clamp(0, T - 1)
+    own = cstore[bid]
+    docs = own[:, :128].long()
+    live = (docs != 2**31 - 1) & ~own[:, 256:].view(torch.float32).isnan()
+    member = torch.unique(bid)
+    ar = torch.arange(16, device=dev)
+    row_sec = [(member[:, None] * ROW_SECTORS + ar).view(-1),
+               (member[:, None] * ROW_SECTORS + 32 + ar).view(-1)]
+    last_sec, bp_sec, pos_sec = [], [], []
+    # each term's window [lo, hi), from the item's first doc
+    s = cl_start[q].long()
+    n = cl_len[q].long()
+    e = torch.clamp(s + n, max=nb)
+    lo, hi = s.clone(), s.clone()
+    for t in range(T):
+        ok = (n[:, t] > 0) & (s[:, t] >= 0) & (e[:, t] > s[:, t])
+        j, reads = lower_bound4_reads(blk_last, s[ok, t], (e - s)[ok, t],
+                                      docs[ok, 0])
+        last_sec.append(reads // SECTOR_WORDS)
+        lo[ok, t] = j
+        hi[ok, t] = torch.minimum(j + kw, e[ok, t])
+    item, lane = torch.nonzero(live, as_tuple=True)
+    d = docs[item, lane]
+    act = torch.ones_like(d, dtype=torch.bool)
+    tf_t = torch.zeros((d.numel(), T), dtype=torch.long, device=dev)
+    pb_t = torch.zeros_like(tf_t)
+    for t in range(T):
+        a, b = lo[item, t], hi[item, t]
+        at = torch.nonzero(act & (b > a), as_tuple=True)[0]
+        row, fences = probe_window_reads(cstore, a[at], b[at], d[at])
+        row_sec.append(fences // SECTOR_WORDS)
+        found, tf, ln, secs = probe_row_reads(cstore, row, d[at])
+        row_sec.append(secs)
+        hit, row, ln = at[found], row[found], ln[found]
+        row_sec.append(_spans(row * ROW_SECTORS + 16, (ln + 7) // 8))
+        bp_sec.append(row // SECTOR_WORDS)
+        excl = (torch.cumsum(cstore[row, 128:256].long(), 1)
+                - cstore[row, 128:256].long())
+        tf_t[hit, t] = tf[found]
+        pb_t[hit, t] = (blk_pos[row].long()
+                        + excl.gather(1, ln[:, None])[:, 0])
+        act = torch.zeros_like(act)
+        act[hit] = True
+    # the count, for the lanes every term holds
+    sel = torch.nonzero(act, as_tuple=True)[0]
+    ld = lead[item[sel]]
+    tf_t, pb_t = tf_t[sel], pb_t[sel]
+    shift = cl_shift[q[item[sel]]].long()
+    jmax = tf_t.gather(1, ld[:, None])[:, 0].clamp(max=MAX_P)
+    pl = pb_t.gather(1, ld[:, None])[:, 0]
+    jj = torch.arange(MAX_P, device=dev)
+    want = jj[None, :] < jmax[:, None]
+    lidx = pl[:, None] + jj
+    pos_sec.append(_pos_sectors(n_pos, lidx[want]))
+    lp = pos_flat[((lidx.clamp(0, n_pos - 1) >> 7) * 256
+                   + (lidx.clamp(0, n_pos - 1) & 127))].long()
+    mask = want.clone()
+    shl = shift.gather(1, ld[:, None])
+    big = 2**40
+    for t in range(T):
+        use = torch.nonzero((ld != t) & mask.any(dim=1), as_tuple=True)[0]
+        lim = tf_t[use, t].clamp(max=pw)
+        pt = pb_t[use, t]
+        pidx = (pt[:, None] + torch.arange(pw, device=dev)).clamp(
+            0, n_pos - 1)
+        vals = pos_flat[(pidx >> 7) * 256 + (pidx & 127)].long()
+        vals = torch.where(torch.arange(pw, device=dev)[None, :]
+                           < lim[:, None], vals, big)
+        target = lp[use] + (shl[use] - shift[use, t, None])
+        last = target.gather(1, (jmax[use] - 1).clamp(min=0)[:, None])
+        stop = torch.searchsorted(vals.contiguous(), last.contiguous())[:, 0]
+        pos_sec.append(_pos_sectors(
+            n_pos, _spans(pt, torch.minimum(stop + 1, lim))))
+        at = torch.searchsorted(vals.contiguous(), target.contiguous())
+        m = vals.gather(1, at.clamp(max=pw - 1)) == target
+        mask[use] &= m
+    n_sec = sum(torch.unique(torch.cat(x)).numel()
+                for x in (row_sec, last_sec, bp_sec, pos_sec) if x)
     return (SECTOR * n_sec
             + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
 
@@ -1241,18 +1466,23 @@ def chunk_work(rec):
     elif rec["kind"] == "deep":
         yield ("deep_probe", deep_calls(rec)[0],
                deep_probe_bytes(rec, rec["rows"]))
+    elif rec["kind"] == "seg_phrase":
+        yield ("seg_phrase", seg_phrase_calls(rec)[0],
+               seg_phrase_bytes(rec, rec["rows"]))
     else:
         yield ("bool_probe", bool_calls(rec, rec["rows"])[0],
                bool_probe_bytes(rec, rec["rows"]))
 
 
-def _device_ms(calls, reps: int = 3) -> float:
+def _device_ms(calls, reps: int = 3, attempts: int = 3) -> float:
     """Device time of one pass over `calls` (no-argument calls), from
     torch.profiler: the summed durations of the CUDA kernels and copies
     they run, averaged over `reps` passes after a warm one. CUDA events
     around a single call also hold the host time between its events, the
     wrapper's checks and allocations (tens of microseconds), which a
-    kernel of a few microseconds cannot hide."""
+    kernel of a few microseconds cannot hide. The profiler has been seen
+    to deliver no device event for a whole pass; such a pass is made
+    again, up to `attempts` passes in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1260,17 +1490,19 @@ def _device_ms(calls, reps: int = 3) -> float:
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA)
-    if not total:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in calls:
+                    fn()
+            torch.cuda.synchronize()
+        total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA)
+        if total:
+            return total / reps / 1e3
+    raise AssertionError(f"torch.profiler recorded no device time in "
+                         f"{attempts} passes")
 
 
 def _same(a, b) -> bool:
@@ -1357,8 +1589,9 @@ def baseline_synthetic(name: str, kern, baselines: dict,
 
 def hard_cases_vs_twin() -> None:
     """Each synthetic hard case of `ops/kernel_cases.py` at kk = 1, 10 and
-    128 through the group-probe, windowed-probe or packed flat-scorer
-    kernel and its twin on the card, bitwise."""
+    128 through the group-probe, windowed-probe, deep-probe, per-segment
+    phrase or packed flat-scorer kernel and its twin on the card,
+    bitwise."""
     import torch
 
     from tantivy_tpu_torch.ops import kernel_cases as kc
@@ -1401,6 +1634,22 @@ def hard_cases_vs_twin() -> None:
             _, n_rep = _compare(name, *deep_calls({**rec, "k": kk}))
             print(f"kernel==twin {name}: W={case['rows'].shape[0]} "
                   f"T={case['T']} n_iters={case['n_iters']} "
+                  f"reported={n_rep} bitwise equal")
+    for kind in kc.PHRASE_KINDS:
+        case = kc.phrase_case(kind)
+        rec = dict(rows=dev(case["rows"]),
+                   tables=tuple(dev(a) for a in case["tables"]),
+                   cstore=dev(case["cstore"].view(np.int32)),
+                   postore=dev(case["postore"].view(np.int32)),
+                   blk_pos=dev(case["blk_pos"].astype(np.int32)),
+                   blk_last=dev(case["blk_last"].view(np.int32)),
+                   num_queries=case["num_queries"], kw=case["kw"],
+                   pw=case["pw"], n_iters=case["n_iters"])
+        for kk in (1, 10, 128):
+            name = f"seg_phrase hard case {kind} kk={kk}"
+            _, n_rep = _compare(name, *seg_phrase_calls({**rec, "k": kk}))
+            print(f"kernel==twin {name}: W={case['rows'].shape[0]} "
+                  f"T={case['T']} kw={case['kw']} pw={case['pw']} "
                   f"reported={n_rep} bitwise equal")
     for kind in kc.PACKED_KINDS:
         case = kc.packed_case(kind)
@@ -1571,10 +1820,46 @@ def deep_probe_vs_twin(log, baselines: dict) -> dict:
                 "deep_probe", kern, baselines, "largest chunk")}
 
 
+def seg_phrase_vs_twin(seg_timing, baselines: dict) -> dict:
+    """Every K6 chunk of one timed batch of each per-segment phrase suite
+    through the kernel and its twin on the card, bitwise; the largest
+    chunk's kernel ms (`_device_ms`), twin ms (CUDA events) and bound, and
+    the ms of each baseline build of K6 on it."""
+    recs = [r for tm in seg_timing.values() for r in tm["batch_log"]
+            if r["kind"] == "seg_phrase"]
+    if not recs:
+        raise AssertionError("the per-segment phrase path made no K6 launch")
+    max_err, n_rep = 0.0, 0
+    for i, rec in enumerate(recs):
+        err, n = _compare(f"seg_phrase chunk {i}", *seg_phrase_calls(rec))
+        max_err, n_rep = max(max_err, err), n_rep + n
+    items = sum(int(r["rows"].shape[0]) for r in recs)
+    print(f"kernel==twin seg_phrase: {len(recs)} chunks of one timed batch "
+          f"per suite ({items} items, term counts "
+          f"{sorted({r['n_terms'] for r in recs})}, (kw, pw) "
+          f"{sorted({(r['kw'], r['pw']) for r in recs})}, phases "
+          f"{sorted({r['phase'] for r in recs})}), reported={n_rep} "
+          "bitwise equal")
+    rec = max(recs, key=lambda r: r["rows"].shape[0])
+    kern, twin = seg_phrase_calls(rec)
+    ms = _device_ms([kern], 20)
+    plain_ms = _time_ms(twin, 3)
+    bound = bound_ms(seg_phrase_bytes(rec, rec["rows"]))
+    print(f"kernel==twin seg_phrase largest chunk: W={rec['rows'].shape[0]} "
+          f"T={rec['n_terms']} kw={rec['kw']} pw={rec['pw']} "
+          f"kk={min(rec['k'], 128)} bitwise equal; kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "baseline_synthetic_ms": baseline_synthetic(
+                "seg_phrase", kern, baselines, "largest chunk")}
+
+
 def profile_layers(executor, packed_executor, stream, seed: int,
                    path: str) -> None:
     """Per-layer breakdown of one fresh batch per suite of both paths (the
-    probe path's suites are named `probe_*`) and of the term log through
+    probe path's suites are named `probe_*`), of the phrase log through
+    `search_phrase_batch` (`phrase_seg`) and of the term log through
     `search_term_batch` on the dense and the packed executor
     (`term_batch`, `packed_term_batch`): an untraced batch, then
     another with the engine's host spans (`tantivy_tpu_torch.utils.trace`) and
@@ -1594,6 +1879,7 @@ def profile_layers(executor, packed_executor, stream, seed: int,
             for suite, qlog in logs.items()]
     runs += [(f"probe_{suite}", executor.search_boolean_batch, qlog)
              for suite, qlog in probe_logs(logs).items()]
+    runs.append(("phrase_seg", executor.search_phrase_batch, logs["phrase"]))
 
     def term_batch(ex):
         return lambda qs, k: ex.search_term_batch([q.term for q in qs], k)
@@ -1677,6 +1963,7 @@ def main(argv=None) -> int:
         group_probe,
         packed_flat,
         phrase_probe,
+        phrase_scorer,
     )
 
     def zero_counts():
@@ -1685,6 +1972,7 @@ def main(argv=None) -> int:
         bool_probe.launches = 0
         packed_flat.launches = 0
         deep_probe.launches = 0
+        phrase_scorer.launches = 0
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1792,11 +2080,55 @@ def main(argv=None) -> int:
                              f"times, the planner counted {probe_deep} deep "
                              "chunks")
 
-    check_exact(searcher, {**answered, **probe_answered}, args.seed)
+    # 5b. the per-segment phrase path, with its own counts and peak memory
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stats0 = dict(executor.plan_stats)
+    executor.launch_log = []
+    seg_timing, seg_answered = run_phrase_seg(
+        executor, logs,
+        long_phrases(stream, args.seed, BATCH * (1 + TIMED_BATCHES)), n_seg)
+    seg_counts = launch_counts()
+    launches["seg_phrase"] = seg_counts["seg_phrase"]
+    seg_rungs = {r: executor.plan_stats.get(f"phrase_seg_{r}", 0)
+                 - stats0.get(f"phrase_seg_{r}", 0) for r in PHRASE_SEG_RUNGS}
+    executor.launch_log = None
+    main_phrase = timing["phrase"]
+    for suite, tm in seg_timing.items():
+        print(f"phrase_seg suite {suite}: {tm['qps']:.1f} QPS, p50 "
+              f"{tm['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} ({gpu}), "
+              f"against the main path's phrase suite (K2) "
+              f"{main_phrase['qps']:.1f} QPS, p50 {main_phrase['p50_ms']:.1f} "
+              f"ms; seg_phrase launches by rung {tm['k6_by_rung']} "
+              f"({tm['launches_per_batch'].get('seg_phrase', 0):.1f} per "
+              f"timed batch); {tm['host_plans']} of {tm['plans']} (query, "
+              f"segment) plans ran on the host engine {tm['host_by_reason']}")
+    print(f"launches on the per-segment phrase path: {seg_counts} "
+          f"(plan_stats by rung {seg_rungs}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches["seg_phrase"] == 0:
+        raise AssertionError("the per-segment phrase path launched no "
+                             "seg_phrase kernel")
+    if launches["seg_phrase"] != sum(seg_rungs.values()):
+        raise AssertionError(f"seg_phrase launched {launches['seg_phrase']} "
+                             f"times, the planner counted {seg_rungs}")
+    others = {n: c for n, c in seg_counts.items() if c and n != "seg_phrase"}
+    if others:
+        raise AssertionError(f"the per-segment phrase path launched {others}")
+    if [bits(h) for _, h in seg_answered["phrase_seg"]] != [
+            bits(h) for _, h in answered["phrase"]]:
+        raise AssertionError("phrase_seg: hits differ from the main path's "
+                             "phrase suite")
+    print("phrase_seg: hits of the timed batches equal the main path's "
+          "phrase suite list for list")
+
+    check_exact(searcher, {**answered, **probe_answered, **seg_answered},
+                args.seed)
     by_path = {"main": {"group_probe": launches["group_probe"],
                         "phrase_probe": launches["phrase_probe"]},
                "probe": {"bool_probe": launches["bool_probe"],
-                         "deep_probe": launches["deep_probe"]}}
+                         "deep_probe": launches["deep_probe"]},
+               "phrase_seg": {"seg_phrase": launches["seg_phrase"]}}
 
     def read_counts(path: str, needed) -> None:
         by_path[path] = launch_counts()
@@ -1903,6 +2235,7 @@ def main(argv=None) -> int:
              "phrase_probe": phrase_probe_vs_twin(log, baselines),
              "bool_probe": bool_probe_vs_twin(probe_log, baselines),
              "deep_probe": deep_probe_vs_twin(probe_log, baselines),
+             "seg_phrase": seg_phrase_vs_twin(seg_timing, baselines),
              "packed_flat": {"max_abs_err": packed["max_abs_err"],
                              "ms": big_ms, "plain_ms": big_twin_ms,
                              "bound_ms": bound_ms(big_bytes),
@@ -1913,6 +2246,7 @@ def main(argv=None) -> int:
     per_batch = batch_kernel_times({
         **timing,
         **{f"probe_{suite}": tm for suite, tm in probe_timing.items()},
+        **seg_timing,
         "packed_term": {"batch_log": packed["batch_log"],
                         "launches_per_batch": {
                             "packed_flat": packed["launches_per_batch"]}},
@@ -1927,7 +2261,8 @@ def main(argv=None) -> int:
                 "bool_probe": "tantivy_tpu/ops/pallas_probe.py:126",
                 "packed_flat": "tantivy_tpu/ops/decode.py:58 + "
                                "tantivy_tpu/ops/flat_scorer.py:43",
-                "deep_probe": "tantivy_tpu/ops/probe_scorer.py:398"}
+                "deep_probe": "tantivy_tpu/ops/probe_scorer.py:398",
+                "seg_phrase": "tantivy_tpu/ops/phrase_scorer.py:71"}
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -66,26 +66,6 @@ constexpr int kMust = 0;
 constexpr int kShould = 1;
 constexpr int kMustNot = 2;
 
-// The first index i in [lo, lo + n) with keys[i] >= doc, or lo + n. Each
-// step loads 3 pivots at once and keeps the quarter that holds the answer.
-__device__ __forceinline__ long long lower_bound4(
-    const int32_t* __restrict__ keys, long long lo, long long n,
-    int32_t doc) {
-  // the answer lies in [lo, lo + n]
-  while (n > 0) {
-    const long long q = (n + 3) >> 2;
-    int k = 0;
-#pragma unroll
-    for (int i = 1; i <= 3; ++i) {
-      if (i * q <= n) k += __ldg(keys + lo + i * q - 1) < doc ? 1 : 0;
-    }
-    lo += k * q;
-    // the pivot after the kept quarter, where one was loaded, is >= doc
-    n = (k < 3 && (k + 1) * q <= n) ? q - 1 : n - k * q;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(kLanes) deep_probe_kernel(
     const int32_t* __restrict__ rows, int n_clauses,
     const float* __restrict__ cl_weight, const int32_t* __restrict__ cl_kind,
@@ -150,7 +130,8 @@ __global__ void __launch_bounds__(kLanes) deep_probe_kernel(
       long long e = s + s_len[t];
       if (e > n_store_rows) e = n_store_rows;
       if (s >= 0 && e > s) {
-        const long long row = lower_bound4(blk_last, s, e - s, doc);
+        const long long row =
+            tantivy_port::lower_bound4(blk_last, s, e - s, doc);
         if (row < e) {
           found = tantivy_port::probe_row(cstore + row * kRowWords, doc,
                                           &tf_probe);

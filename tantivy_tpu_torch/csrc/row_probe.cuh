@@ -1,7 +1,9 @@
-// The probe shared by the port's boolean probe kernels (K1, K3 and K4): is
-// a lane's doc in a window of cstore rows of one term region, and with what
-// tf? (K4 finds its row by a search of its own over the blocks' last docs
-// and uses only `probe_row`.)
+// The probe shared by the port's probe kernels (K1, K3, K4 and K6): is a
+// lane's doc in a window of cstore rows of one term region, and with what
+// tf? (K4 finds its row by `lower_bound4` over the blocks' last docs and
+// uses only `probe_row`; K6 finds its window's first row the same way and
+// takes the row and lane of the hit from the `_at` forms, which the other
+// forms call.)
 //
 // Precondition (checked where the fused store is built, and the callers
 // clip every window to its region): inside a region docs ascend strictly
@@ -26,10 +28,31 @@ namespace tantivy_port {
 constexpr int kProbeRowWords = 384;  // docs | tfs | bitcast(cachev)
 constexpr int kProbeLanes = 128;
 
+// The first index i in [lo, lo + n) with keys[i] >= doc, or lo + n. Each
+// step loads 3 pivots at once and keeps the quarter that holds the answer.
+__device__ __forceinline__ long long lower_bound4(
+    const int32_t* __restrict__ keys, long long lo, long long n,
+    int32_t doc) {
+  // the answer lies in [lo, lo + n]
+  while (n > 0) {
+    const long long q = (n + 3) >> 2;
+    int k = 0;
+#pragma unroll
+    for (int i = 1; i <= 3; ++i) {
+      if (i * q <= n) k += __ldg(keys + lo + i * q - 1) < doc ? 1 : 0;
+    }
+    lo += k * q;
+    // the pivot after the kept quarter, where one was loaded, is >= doc
+    n = (k < 3 && (k + 1) * q <= n) ? q - 1 : n - k * q;
+  }
+  return lo;
+}
+
 // Probes doc in one cstore row (its 128 ascending docs, then their tfs):
-// returns whether it is there and sets *tf to its tf (0 when absent).
-__device__ __forceinline__ bool probe_row(const int32_t* __restrict__ docs,
-                                          int32_t doc, int32_t* tf) {
+// returns whether it is there and sets *tf to its tf (0 when absent) and,
+// when it is there, *lane to its lane.
+__device__ __forceinline__ bool probe_row_at(
+    const int32_t* __restrict__ docs, int32_t doc, int32_t* tf, int* lane) {
   // the doc's lower bound among the row's 128 ascending docs: its 32-doc
   // block, then its 8-doc octet, then the octet itself
   int base = 0;
@@ -57,16 +80,24 @@ __device__ __forceinline__ bool probe_row(const int32_t* __restrict__ docs,
     if (dv[i] == doc) {
       hit = true;
       *tf = tv[i];
+      *lane = base + i;
     }
   }
   return hit;
 }
 
+__device__ __forceinline__ bool probe_row(const int32_t* __restrict__ docs,
+                                          int32_t doc, int32_t* tf) {
+  int lane;
+  return probe_row_at(docs, doc, tf, &lane);
+}
+
 // Probes doc in the rows [a, b) of one region, a < b: returns whether it is
-// there and sets *tf to its tf (0 when absent).
-__device__ __forceinline__ bool probe_window(
+// there and sets *tf to its tf (0 when absent) and, when it is there, *row
+// and *lane to where.
+__device__ __forceinline__ bool probe_window_at(
     const int32_t* __restrict__ cstore, int a, int b, int32_t doc,
-    int32_t* tf) {
+    int32_t* tf, int* row_at, int* lane) {
   // the row: the last of the window whose fence is <= doc, else the first;
   // each step keeps a quarter, ceil(log4(b - a)) steps
   int row = a;
@@ -85,7 +116,16 @@ __device__ __forceinline__ bool probe_window(
     row += k * q;
     n = min(q, n - k * q);
   }
-  return probe_row(cstore + (long long)row * kProbeRowWords, doc, tf);
+  *row_at = row;
+  return probe_row_at(cstore + (long long)row * kProbeRowWords, doc, tf,
+                      lane);
+}
+
+__device__ __forceinline__ bool probe_window(
+    const int32_t* __restrict__ cstore, int a, int b, int32_t doc,
+    int32_t* tf) {
+  int row, lane;
+  return probe_window_at(cstore, a, b, doc, tf, &row, &lane);
 }
 
 }  // namespace tantivy_port

@@ -114,6 +114,7 @@ class DeviceFieldPostings:
         self._positions_np = arrays["positions"]
         self.norm_ids_np = np.ascontiguousarray(norm_ids, dtype=np.uint8)
         self._pos_cum_np = None
+        self._blk_top_tf = None
         if mode == "dense":
             self.docs_np, self.tfs_np = self._decode_all(arrays)
             self._packed = None
@@ -122,6 +123,20 @@ class DeviceFieldPostings:
             self._packed = {f"{p}_w{w}": arrays[f"{p}_w{w}"]
                             for p in ("doc", "tf") for w in _WIDTHS}
         self._tables = None
+
+    def ensure_blk_top_tf(self) -> np.ndarray:
+        """The true per-block max tf (host numpy [NB], 0 for a block
+        without docs), computed once. `blk_max_tf` is the tf of the block's
+        max-score (fieldnorm, tf) skip pair, no bound on tf: a high-tf doc
+        in a long field can lose the score argmax. Whatever bounds in-doc
+        tf (the per-segment phrase path's position windows and host
+        fallbacks) reads this."""
+        if self.docs_np is None:
+            raise dense_only("the per-block max tf")
+        if self._blk_top_tf is None:
+            self._blk_top_tf = self.real_tf_flat().reshape(-1, 128).max(
+                axis=1, initial=0)
+        return self._blk_top_tf
 
     def real_tf_flat(self) -> np.ndarray:
         """Host [NB*128] uint32: tf per store lane, 0 on pad lanes."""

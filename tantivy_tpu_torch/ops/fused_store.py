@@ -13,8 +13,8 @@ global block id indexes both the device stores and the host tables:
 * `rmax`, a range-max table over `bfac` for block-max upper bounds.
 
 `cstore` and the phrase position store `postore` are int32 tensors on the
-store's device, and the per-block last docs get one device copy for the
-deep probe. int32 is lossless for `cstore` because every word is < 2^31
+store's device, and the per-block last docs and position offsets get one
+device copy each, for the deep probe and the per-segment phrase probe. int32 is lossless for `cstore` because every word is < 2^31
 (TERMINATED = 2^31 - 1, and cachev bits are those of a non-negative f32 or
 NaN); `postore` keeps the reference's u32 words, whose 0xFFFFFFFF padding
 reads as -1. The port's merge tail has one form for every segment and doc
@@ -26,10 +26,10 @@ store and building the position store hold `lock`, and a new device tensor
 is uploaded and its stream synchronised before it is published, so every
 stream reads it whole. Slabs keep their rows when the store grows (new
 slabs are appended), so a plan made against one build stays valid against
-the next. A replaced `cstore`, `postore` or block-last tensor is marked as
-used by every stream that has read the store (`Tensor.record_stream`), so
-the caching allocator hands its memory out again only after the kernels
-those streams had queued have passed.
+the next. A replaced `cstore`, `postore`, block-last or block-position
+tensor is marked as used by every stream that has read the store
+(`Tensor.record_stream`), so the caching allocator hands its memory out
+again only after the kernels those streams had queued have passed.
 """
 
 from __future__ import annotations
@@ -100,6 +100,7 @@ class FusedStore:
         # phrase extension, built on demand
         self.postore = None         # [NPr, 256] int32: positions | owners
         self.blk_pos = None         # host [NB + 1] i64 position offset
+        self._blk_pos_t = None
         self._pos_dirty = False
 
     @classmethod
@@ -118,6 +119,7 @@ class FusedStore:
         )
         out.device = device
         out._blk_last_t = None
+        out._blk_pos_t = None
         out.cstore = _to_device(np.array(jax_fused.cstore), device)
         if jax_fused.postore is not None:
             out.postore = _to_device(np.array(jax_fused.postore), device)
@@ -331,6 +333,24 @@ class FusedStore:
 
     # -- phrase position store ---------------------------------------------
 
+    def position_tensors(self):
+        """(postore, blk_pos) on the store's device, built together: the
+        position store (`ensure_positions`) and `blk_pos` as int32 [R + 1],
+        one entry per cstore row of the build it was made for and the
+        position count after them (rows past the slabs hold that count).
+        The per-segment phrase kernel reads a doc's positions from its
+        row's entry."""
+        with self.lock:
+            self.ensure_positions()
+            if self._blk_pos_t is None:
+                bp = np.full(self.cstore.shape[0] + 1, self.num_pos,
+                             dtype=np.int64)
+                bp[:len(self.blk_pos)] = self.blk_pos
+                if bp.max(initial=0) >= 2**31:
+                    raise ValueError("position offsets do not fit int32")
+                self._blk_pos_t = self._upload(bp.astype(np.uint32))
+            return self.postore, self._blk_pos_t
+
     def ensure_positions(self):
         """Build the fused position store and the per-block position
         offsets, as the reference does: `postore` [NPr, 256] holds
@@ -395,12 +415,14 @@ class FusedStore:
         flat_own = np.concatenate(own_parts + [padv]).reshape(rows_p, 128)
         postore = self._upload(np.concatenate([flat_pos, flat_own], axis=1))
         self._retire(self.postore)
+        self._retire(self._blk_pos_t)
         self.__dict__.update(
             postore=postore,
             blk_pos=(np.concatenate(blk_pos_parts + [[total]])
                      if blk_pos_parts else np.zeros(1, dtype=np.int64)),
             num_pos=total,
             pos_rows=rows_p,
+            _blk_pos_t=None,
         )
         self._pos_dirty = False
 

@@ -1,6 +1,6 @@
 """Synthetic launch chunks for the boolean probe kernels K1 (group probe),
-K3 (windowed probe) and K4 (deep probe) and the packed flat scorer K5,
-made from a seed with numpy: the shapes the real launches seldom reach and
+K3 (windowed probe) and K4 (deep probe), the packed flat scorer K5 and the
+per-segment phrase probe K6, made from a seed with numpy: the shapes the real launches seldom reach and
 the kernels' designs find hard. The tests hold the plain twins against the
 reference kernels on them, and the card checks
 (`tests/test_torch_*_probe.py`, `chip_smoke.py`) hold the CUDA kernels
@@ -47,6 +47,19 @@ K5 kinds (`packed_case`), packed mirrors built from random deltas:
 * "ties": no freqs and one field-norm id, so every live lane of an item
   ties with the others and lane order alone decides each cut; two queries
   weigh 0.0 and -0.0 (all-zero scores of either sign).
+K6 kinds (`phrase_case`), each query a leader region and partner regions
+whose docs hold planted aligned phrase positions among random ones:
+* "leader_tf16": leader lanes at tf 16 (MAX_P), up to 16 matches a doc;
+* "partner_tf256": partners at tf up to 256, some exactly 256, pw = 256;
+* "window_1024": one leader row spread over a 1,100-row partner region,
+  kw = 1,024: the window covers the first 1,024 rows only;
+* "store_end": the store's last region holds tfs of 20-32 at pw = 32, so
+  the position windows of its last docs run past the last position into
+  the postore's 0xFFFFFFFF (-1) padding and past its end;
+* "deleted": 40% of the docs deleted, 4 terms;
+* "t8": 8 terms, the leader in the middle;
+* "ties": one match in every lane's doc, one field-norm id and one weight:
+  every live lane of a query ties.
 """
 
 from __future__ import annotations
@@ -63,6 +76,8 @@ GROUP_KINDS = ("ties", "t16", "wide", "oversized")
 BOOL_KINDS = ("every_row", "store_end")
 DEEP_KINDS = ("ladder_edge", "t16")
 PACKED_KINDS = ("widths", "no_freqs", "ties")
+PHRASE_KINDS = ("leader_tf16", "partner_tf256", "window_1024", "store_end",
+                "deleted", "t8", "ties")
 _WIDTHS = (0, 1, 2, 4, 8, 16, 32)
 
 #: items of every synthetic chunk
@@ -434,3 +449,173 @@ def packed_case(kind: str, seed: int = 0) -> dict:
     return dict(kind=kind, mirror=mirror, blocks=blocks, qids=qids,
                 weights=weights, caches=caches.astype(np.float32),
                 num_queries=Q)
+
+
+#: per K6 kind: terms, queries, the leader's index, probe rows kw and
+#: position window pw, leader rows, partner rows, leader and partner tf
+#: ranges [lo, hi), position span, the share of deleted docs
+_PHRASE_CFG = {
+    "leader_tf16": dict(T=2, Q=4, lead=0, kw=8, pw=16, lead_rows=2,
+                        part_rows=6, lead_tf=(12, 17), part_tf=(8, 17),
+                        span=4096, dead=0.1),
+    "partner_tf256": dict(T=3, Q=4, lead=1, kw=8, pw=256, lead_rows=2,
+                          part_rows=6, lead_tf=(1, 5), part_tf=(200, 257),
+                          span=8192, dead=0.1),
+    "window_1024": dict(T=2, Q=2, lead=1, kw=1024, pw=16, lead_rows=1,
+                        part_rows=1100, lead_tf=(1, 4), part_tf=(1, 4),
+                        span=4096, dead=0.1),
+    "store_end": dict(T=2, Q=4, lead=0, kw=64, pw=32, lead_rows=2,
+                      part_rows=10, lead_tf=(1, 9), part_tf=(20, 33),
+                      span=4096, dead=0.1),
+    "deleted": dict(T=4, Q=4, lead=2, kw=8, pw=16, lead_rows=2, part_rows=4,
+                    lead_tf=(1, 6), part_tf=(1, 9), span=4096, dead=0.4),
+    "t8": dict(T=8, Q=3, lead=5, kw=64, pw=32, lead_rows=1, part_rows=3,
+               lead_tf=(1, 6), part_tf=(1, 9), span=4096, dead=0.1),
+    "ties": dict(T=2, Q=4, lead=0, kw=8, pw=16, lead_rows=2, part_rows=4,
+                 lead_tf=(1, 2), part_tf=(1, 2), span=4096, dead=0.0),
+}
+
+
+def _phrase_terms(rng, cfg, ties: bool):
+    """One query's regions, [(docs, tfs, per-doc positions)] in term
+    order. The docs every term holds get planted phrase matches: term t at
+    s + t for starts s taken from the leader's positions."""
+    T, lead = cfg["T"], cfg["lead"]
+    n_part = cfg["part_rows"] * 128 - 29
+    if cfg["lead_rows"] == 1 and cfg["part_rows"] > 64:
+        # one leader row whose docs spread over the whole partner region
+        part = _sorted_docs(rng, n_part)
+        lead_docs = part[::len(part) // 128][:128]
+        docs = {t: part for t in range(T) if t != lead}
+    else:
+        lead_docs = _sorted_docs(rng, cfg["lead_rows"] * 128 - 37)
+        docs = {}
+        for t in range(T):
+            if t != lead:
+                keep = lead_docs[rng.random(len(lead_docs))
+                                 < (1.0 if ties else 0.8)]
+                more = _sorted_docs(rng, max(n_part - len(keep), 1))
+                docs[t] = np.union1d(keep, more).astype(np.uint32)
+    docs[lead] = lead_docs
+    tf = {t: rng.integers(*cfg["lead_tf" if t == lead else "part_tf"],
+                          len(docs[t]))
+          for t in range(T)}
+    if cfg["lead_tf"][1] > 16:
+        tf[lead][::2] = 16  # every other leader doc at MAX_P
+    span = cfg["span"]
+    where = {t: {int(d): i for i, d in enumerate(docs[t])} for t in range(T)}
+    pos = {t: [None] * len(docs[t]) for t in range(T)}
+    for i, d in enumerate(lead_docs):
+        lp = np.sort(rng.choice(np.arange(T, span), tf[lead][i],
+                                replace=False))
+        pos[lead][i] = lp
+        holds = [where[t].get(int(d)) for t in range(T)]
+        m = 0
+        if all(h is not None for h in holds):
+            cap = min(int(tf[t][holds[t]]) for t in range(T))
+            m = 1 if ties else int(rng.integers(0, cap + 1))
+        starts = rng.choice(lp, m, replace=False) - lead
+        for t in range(T):
+            if t != lead and holds[t] is not None:
+                need = starts + t
+                free = np.setdiff1d(np.arange(span), need)
+                fill = rng.choice(free, int(tf[t][holds[t]]) - m,
+                                  replace=False)
+                pos[t][holds[t]] = np.sort(np.concatenate([need, fill]))
+    for t in range(T):
+        # the other docs: ascending positions by random gaps of at least 1
+        rest = [i for i, p in enumerate(pos[t]) if p is None]
+        n = tf[t][rest]
+        gaps = rng.integers(1, max(2, span // max(int(n.max(initial=1)), 1)),
+                            int(n.sum()))
+        cum = np.cumsum(gaps)
+        first = np.repeat(np.cumsum(n) - n, n)
+        runs = np.split(cum - np.append(0, cum)[first], np.cumsum(n)[:-1])
+        for i, p in zip(rest, runs):
+            pos[t][i] = p
+    return [(docs[t], np.asarray(tf[t], np.uint32), pos[t])
+            for t in range(T)]
+
+
+def phrase_case(kind: str, seed: int = 0) -> dict:
+    """One K6 launch chunk of `kind` (see the module note), for the port
+    and for the reference's `probe_phrase_topk`: `rows` [64, 3] i32 (bid,
+    qid, leader term; items past the real ones have qid = num_queries),
+    `tables` (q_weight [Q+1] f32, cl_start / cl_len / cl_shift [Q+1, T]
+    i32), the reference's `cl_pos_start`, `cstore` [NB, 384] u32,
+    `postore` [NPr, 256] u32 (positions | owners, 0xFFFFFFFF padding),
+    `blk_pos` [NB + 1] i64, `blk_last` [NB] u32, `kw`, `pw`, `n_iters`,
+    `T`, `num_queries` and `parts`: the store's docs and tfs, norm_ids,
+    alive, cache, the flat positions and their per-lane exclusive tf sums
+    (`pos_cum`), as the reference's field store holds them. Every leader
+    block of each query is an item."""
+    rng = np.random.default_rng(6000 + 17 * seed + PHRASE_KINDS.index(kind))
+    cfg = _PHRASE_CFG[kind]
+    T, Q, lead = cfg["T"], cfg["Q"], cfg["lead"]
+    ties = kind == "ties"
+    docs, tfs, starts, lens, flat_pos = [], [], [], [], []
+    at = 0
+    for _ in range(Q):
+        for d, tf, pos in _phrase_terms(rng, cfg, ties):
+            gap = (-at) % 8
+            if gap:
+                docs.append(np.full((gap, 128), TERMINATED, np.uint32))
+                tfs.append(np.ones((gap, 128), np.uint32))
+                at += gap
+            nb = -(-len(d) // 128)
+            block = np.full(nb * 128, TERMINATED, np.uint32)
+            block[:len(d)] = d
+            tblock = np.ones(nb * 128, np.uint32)
+            tblock[:len(d)] = tf
+            docs.append(block.reshape(nb, 128))
+            tfs.append(tblock.reshape(nb, 128))
+            flat_pos.extend(pos)
+            starts.append(at)
+            lens.append(nb)
+            at += nb
+    norm_ids = (np.zeros(_MAX_DOC, np.uint8) if ties
+                else rng.integers(0, 2, _MAX_DOC).astype(np.uint8))
+    alive = rng.random(_MAX_DOC) >= cfg["dead"]
+    cache = np.resize(np.array([1.25, 2.5], np.float32), 256)
+    cstore = build_cstore_np(np.concatenate(docs), np.concatenate(tfs),
+                             norm_ids, alive, cache)
+    store_docs, store_tfs = cstore[:, :128], cstore[:, 128:256]
+    real = store_docs != TERMINATED
+    real_tf = np.where(real, store_tfs, 0).reshape(-1)
+    pos_cum = (np.cumsum(real_tf, dtype=np.uint32) - real_tf).astype(
+        np.uint32)
+    positions = np.concatenate(flat_pos).astype(np.uint32)
+    n_pos = len(positions)
+    rows_p = -(-n_pos // 128)
+    pad = np.full(rows_p * 128 - n_pos, 0xFFFFFFFF, np.uint32)
+    owners = np.repeat(store_docs.reshape(-1), real_tf)
+    postore = np.concatenate(
+        [np.concatenate([positions, pad]).reshape(rows_p, 128),
+         np.concatenate([owners, pad]).reshape(rows_p, 128)], axis=1)
+    blk_pos = np.append(pos_cum[::128].astype(np.int64), n_pos)
+    blk_last = np.where(real.any(axis=1),
+                        np.where(real, store_docs, 0).max(axis=1),
+                        TERMINATED).astype(np.uint32)
+    starts = np.array(starts).reshape(Q, T)
+    lens = np.array(lens).reshape(Q, T)
+    q_weight = (np.full(Q + 1, 1.75, np.float32) if ties
+                else rng.uniform(1.0, 3.0, Q + 1).astype(np.float32))
+    cl_start = np.zeros((Q + 1, T), np.int32)
+    cl_len = np.zeros((Q + 1, T), np.int32)
+    cl_shift = np.zeros((Q + 1, T), np.int32)
+    cl_start[:Q], cl_len[:Q] = starts, lens
+    cl_shift[:Q] = (T - 1) - np.arange(T)
+    cl_pos_start = pos_cum[cl_start.astype(np.int64) * 128].astype(np.int32)
+    rows = np.zeros((CHUNK_W, 3), np.int32)
+    rows[:, 1] = Q
+    items = [(starts[q, lead] + r, q, lead)
+             for q in range(Q) for r in range(lens[q, lead])]
+    rows[:len(items)] = items
+    return dict(kind=kind, rows=rows, T=T, num_queries=Q, kw=cfg["kw"],
+                pw=cfg["pw"], n_iters=_iter_bucket(int(cl_len.max())),
+                tables=(q_weight, cl_start, cl_len, cl_shift),
+                cl_pos_start=cl_pos_start, cstore=cstore, postore=postore,
+                blk_pos=blk_pos, blk_last=blk_last,
+                parts=dict(docs=store_docs, tfs=store_tfs,
+                           norm_ids=norm_ids, alive=alive, cache=cache,
+                           positions=positions, pos_cum=pos_cum))

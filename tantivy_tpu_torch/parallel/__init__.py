@@ -18,8 +18,12 @@ reached only through `search_boolean_batch`: per (segment, field, clause
 bucket) work lists -> `probe_scorer.dispatch_probe` -> the windowed-probe
 kernel (`bool_probe.bool_probe_topk`) or the deep per-lane probe, each
 with a per-segment merge tail. A fourth, `search_term_batch`, is the
-reference's flat term scorer (`ops/flat_scorer.py`, plain torch). All read
-the same fused store.
+reference's flat term scorer (`ops/flat_scorer.py`, plain torch). A
+fifth is the reference's per-segment Block-WAND phrase path, reached only
+through `search_phrase_batch`: per (segment, field, term count) leader
+block work lists -> `phrase_scorer.dispatch_phrase` -> the per-segment
+phrase kernel (`phrase_scorer.seg_phrase_topk`) with a per-segment merge
+tail. All read the same fused store.
 In packed mode (`mode="packed"`, the reference's) no fused store is built:
 `search_term_batch` runs the flat scorer's packed form, kernel K5 over each
 (segment, field)'s bit-packed mirror (`ops/packed_flat.py`), and
@@ -45,6 +49,7 @@ import torch
 
 from ..ops.device_index import check_mode, dense_only
 from ..ops.fused_store import FusedStore
+from ..ops.phrase_scorer import T_MAX as PHRASE_T_MAX
 from ..postings.format import TERMINATED as TERMINATED_U32
 from ..query.bm25 import Bm25Weight
 from ..searcher import DocAddress, Searcher
@@ -52,13 +57,10 @@ from ..utils.trace import debug_time
 
 NEG_INF = np.float32(-np.inf)
 
-#: max terms per phrase(-prefix) query on the device path (the reference's
-#: `ops/phrase_scorer.T_MAX`; partner buckets S = t_bucket(T) - 1 <= 7)
-PHRASE_T_MAX = 8
-
 #: the kernels each mode runs (`prewarm` loads these)
 _MODE_KERNELS = {
-    "dense": ("group_probe", "phrase_probe", "bool_probe"),
+    "dense": ("group_probe", "phrase_probe", "bool_probe", "deep_probe",
+              "seg_phrase"),
     "packed": ("packed_flat",),
 }
 
@@ -1566,12 +1568,231 @@ class BatchExecutor:
         return max(tot, 1)
 
     def search_phrase_batch(self, queries: list, k: int):
-        """Batched slop-0 phrase and multi-term phrase-prefix queries on
-        the device (the fused path; the reference's XLA path is not
-        ported). Returns list[list[(score, DocAddress)]]."""
+        """Batched slop-0 phrase queries on the device through the
+        per-segment Block-WAND phrase path (the reference's search with its
+        fused chain off): candidates are the rarest (leader) term's blocks,
+        whose upper bound is the phrase weight times the leader block's
+        block-max tf factor (phrase tf <= leader tf); phase 1 ships each
+        (query, segment)'s best `_m1()` blocks, phase 2 the rest whose bound
+        beats the phase-1 threshold. Each (segment, field, term count)
+        work list runs through `phrase_scorer.dispatch_phrase` (kernel K6).
+        (query, segment) plans the device cannot run soundly resolve on the
+        host engine, counted in `fallbacks`: a leader block tf above
+        MAX_P ("phrase_seg_leader_tf"), any term's above MAX_OTHER_TF
+        ("phrase_seg_partner_tf"), a probe window wider than MAX_KW
+        ("phrase_seg_wide_window"). Multi-term phrase-prefixes, which that
+        path does not take, run the fused chain (`_search_phrase_fused`)
+        inside the same call. Every query must be device-eligible.
+        Returns list[list[(score, DocAddress)]]."""
+        from ..query import PhrasePrefixQuery
+
         if self.mode == "packed":
             raise dense_only("search_phrase_batch")
-        return self._search_phrase_fused(queries, k)
+        for q in queries:
+            if not (self._phrase_device_eligible(q)
+                    or self._prefix_device_eligible(q)):
+                raise ValueError(
+                    f"not a device-eligible slop-0 phrase query: {q!r}"
+                )
+        prefixes = [i for i, q in enumerate(queries)
+                    if type(q) is PhrasePrefixQuery]
+        if not prefixes:
+            return self._search_phrase_seg(queries, k)
+        out = [None] * len(queries)
+        for i, hits in zip(prefixes, self._search_phrase_fused(
+                [queries[i] for i in prefixes], k)):
+            out[i] = hits
+        rest = [i for i in range(len(queries)) if out[i] is None]
+        for i, hits in zip(rest, self._search_phrase_seg(
+                [queries[i] for i in rest], k)):
+            out[i] = hits
+        return out
+
+    def _search_phrase_seg(self, queries: list, k: int):
+        """`search_phrase_batch`'s per-segment plan over slop-0
+        `PhraseQuery`s (the reference's `search_phrase_batch` off Pallas,
+        `tantivy_tpu/parallel/__init__.py:2527-2634`)."""
+        from ..ops import phrase_scorer as ph
+        from ..schema.term import Term
+
+        Q = len(queries)
+        if Q == 0:
+            return []
+        qweight = np.zeros(Q + 1, dtype=np.float32)
+        for qi, q in enumerate(queries):
+            fs = self._field_statistics(q.field)
+            dfs = [self.searcher.doc_freq(Term(q.field, tb))
+                   for tb in q.term_bytes]
+            qweight[qi] = Bm25Weight.for_terms(
+                dfs, fs.total_num_docs, fs.average_fieldnorm
+            ).weight
+
+        readers = self.searcher.segment_readers()
+        # the kernel reads the fused store: one slab per (segment, field)
+        for seg_ord in range(len(readers)):
+            for f in {q.field for q in queries}:
+                self._ensure_fused_slab(seg_ord, f)
+        fused = self._fused().ready()
+        M1 = _m1()
+
+        def dispatch(seg_ord, field, g, blocks, qids, terms, widths):
+            with debug_time("phrase_seg.dispatch", n=len(blocks)):
+                return ph.dispatch_phrase(
+                    fused, fused.slabs[(seg_ord, field)], blocks, qids,
+                    terms, g["tables"], k, Q, widths, log=self.launch_log,
+                    count=self._count_plan,
+                )
+
+        def tag_phase(n0, phase):
+            if self.launch_log is not None:
+                for rec in self.launch_log[n0:]:
+                    rec["phase"] = phase
+
+        # ---- per-segment planning + phase-1 dispatch --------------------
+        per_query: list[list] = [[] for _ in range(Q)]
+        pending1 = []
+        seg_groups = []  # per segment: {(field, T): group dict}
+        log0 = len(self.launch_log or ())
+        _dt1 = debug_time("phrase_seg.plan_dispatch1")
+        _dt1.__enter__()
+        for seg_ord, reader in enumerate(readers):
+            dseg = self._device_segments[seg_ord]
+            groups: dict[tuple[str, int], dict] = {}
+            for qi, q in enumerate(queries):
+                field = q.field
+                dfp = dseg.field_postings(field)
+                T = len(q.term_bytes)
+                ords = [self._term_ord(seg_ord, reader, field, tb)
+                        for tb in q.term_bytes]
+                if any(o < 0 for o in ords):
+                    continue  # the phrase cannot match in this segment
+                starts = [int(dfp.term_block_start[o]) for o in ords]
+                nblks = [int(dfp.term_num_blocks[o]) for o in ords]
+                top_tf = dfp.ensure_blk_top_tf()
+                maxtf = [int(top_tf[s:s + n].max(initial=0))
+                         for s, n in zip(starts, nblks)]
+                leader = min(range(T), key=lambda t: nblks[t])
+                why = None
+                if maxtf[leader] > ph.MAX_P:
+                    why = "phrase_seg_leader_tf"
+                elif any(m > ph.MAX_OTHER_TF for m in maxtf):
+                    why = "phrase_seg_partner_tf"
+                if why is None:
+                    others = [(True, np.float32(0.0), starts[t], nblks[t], t)
+                              for t in range(T) if t != leader]
+                    ids, ub, widths = self._field_wand(
+                        seg_ord, field).clause_blocks_ub(
+                            starts[leader], nblks[leader], qweight[qi],
+                            others, self_pos=leader)
+                    widths = (widths.max(axis=1) if widths.shape[1]
+                              else np.zeros(len(ids), dtype=np.int64))
+                    if not len(ids):
+                        continue
+                    if int(widths.max(initial=0)) > ph.MAX_KW:
+                        # a near-singleton leader block spanning a dense
+                        # partner's region: no device window covers it
+                        why = "phrase_seg_wide_window"
+                if why is not None:
+                    self._count_fallback(why)
+                    with debug_time("phrase_seg.host_plan"):
+                        per_query[qi].append(
+                            self._host_segment_topk(q, seg_ord, reader, k)
+                        )
+                    continue
+                # one group per term count: the kernel takes T at run time,
+                # so no table column pads a shorter phrase (the reference's
+                # term buckets give 5-7 term phrases empty columns that
+                # reject every lane)
+                g = groups.get((field, T))
+                if g is None:
+                    g = groups[(field, T)] = {
+                        "tables": {
+                            "q_weight": qweight,
+                            "cl_start": np.zeros((Q + 1, T), np.int32),
+                            "cl_len": np.zeros((Q + 1, T), np.int32),
+                            "cl_shift": np.zeros((Q + 1, T), np.int32),
+                            "q_max_tf": np.ones(Q + 1, dtype=np.int64),
+                        },
+                        "p1": [],    # (qi, leader, block_ids, widths)
+                        "rest": [],  # (qi, leader, block_ids, ub, widths)
+                    }
+                tb = g["tables"]
+                mx_off = max(q.offsets)
+                for t in range(T):
+                    tb["cl_start"][qi, t] = starts[t]
+                    tb["cl_len"][qi, t] = nblks[t]
+                    tb["cl_shift"][qi, t] = mx_off - q.offsets[t]
+                tb["q_max_tf"][qi] = max(tb["q_max_tf"][qi], *maxtf)
+                if len(ids) <= M1:
+                    g["p1"].append((qi, leader, ids, widths))
+                else:
+                    top = np.argpartition(-ub, M1 - 1)[:M1]
+                    pick = np.zeros(len(ids), dtype=bool)
+                    pick[top] = True
+                    g["p1"].append((qi, leader, ids[pick], widths[pick]))
+                    g["rest"].append(
+                        (qi, leader, ids[~pick], ub[~pick], widths[~pick])
+                    )
+
+            for (field, _), g in groups.items():
+                if not g["p1"]:
+                    continue
+                blocks = np.concatenate([ids for _, _, ids, _ in g["p1"]])
+                qids = np.concatenate([np.full(len(ids), qi, np.int32)
+                                       for qi, _, ids, _ in g["p1"]])
+                terms = np.concatenate([np.full(len(ids), t, np.int32)
+                                        for _, t, ids, _ in g["p1"]])
+                wds = np.concatenate([wd for _, _, _, wd in g["p1"]])
+                self._count_plan("wand_p1", len(blocks))
+                for out in dispatch(seg_ord, field, g, blocks, qids, terms,
+                                    wds):
+                    pending1.append((seg_ord, out))
+            seg_groups.append(groups)
+        _dt1.__exit__(None, None, None)
+        tag_phase(log0, 1)
+
+        # ---- (score, DocAddress) thresholds from phase 1 -----------------
+        with debug_time("phrase_seg.collect", n=len(pending1)):
+            self._collect_flat(pending1, per_query)
+        th, th_seg, th_doc = _topk_thresholds(per_query, k)
+
+        # ---- phase 2: surviving blocks only (tie-aware) -------------------
+        pending2 = []
+        log0 = len(self.launch_log or ())
+        _dt2 = debug_time("phrase_seg.plan_dispatch2")
+        _dt2.__enter__()
+        for seg_ord, groups in enumerate(seg_groups):
+            dseg = self._device_segments[seg_ord]
+            for (field, _), g in groups.items():
+                if not g["rest"]:
+                    continue
+                dfp = dseg.field_postings(field)
+                blks, qids, terms, wds = [], [], [], []
+                for qi, t, ids, ub, widths in g["rest"]:
+                    keep = _phase2_keep(
+                        ub, dfp.blk_base[ids], seg_ord,
+                        th[qi], th_seg[qi], th_doc[qi],
+                    )
+                    if not keep.any():
+                        continue
+                    blks.append(ids[keep])
+                    qids.append(np.full(int(keep.sum()), qi, np.int32))
+                    terms.append(np.full(int(keep.sum()), t, np.int32))
+                    wds.append(widths[keep])
+                if not blks:
+                    continue
+                self._count_plan("wand_p2", sum(len(b) for b in blks))
+                for out in dispatch(seg_ord, field, g, np.concatenate(blks),
+                                    np.concatenate(qids),
+                                    np.concatenate(terms),
+                                    np.concatenate(wds)):
+                    pending2.append((seg_ord, out))
+        _dt2.__exit__(None, None, None)
+        tag_phase(log0, 2)
+        with debug_time("phrase_seg.collect", n=len(pending2)):
+            self._collect_flat(pending2, per_query)
+
+        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
 
     def _search_phrase_fused(self, queries: list, k: int):
         """Fused phrase batch: the position-probe kernel, one launch round
@@ -2173,7 +2394,7 @@ class BatchExecutor:
         ))
         done.update(zip(
             phrase_ids,
-            self.search_phrase_batch([queries[i] for i in phrase_ids], k),
+            self._search_phrase_fused([queries[i] for i in phrase_ids], k),
         ))
 
         def answer(i):

@@ -1,8 +1,8 @@
 """The port stands alone: it imports torch, never jax, and nothing of
 `tantivy_tpu`. Importing every module of `tantivy_tpu_torch`, and running
 its phrase path, its per-segment boolean path, the rest of its executor
-(term batches, pipelined and sharded batches, count, agg, the warmer) and
-its packed mode on the CPU, must leave no `jax` and no `tantivy_tpu` /
+(term batches, pipelined and sharded batches, count, agg, the warmer), its
+per-segment phrase path and its packed mode on the CPU, must leave no `jax` and no `tantivy_tpu` /
 `tantivy_tpu.*` module in `sys.modules`; those run in a fresh interpreter,
 because this test process has already imported both (tests/conftest.py). A static check parses every `.py` file of the
 port, and `chip_smoke.py`, and fails on any import of `tantivy_tpu`."""
@@ -107,6 +107,32 @@ assert bool_probe.launches == 0 and deep_probe.launches == 0
 """ + LOADED
 
 
+#: the per-segment phrase path (K6's twin) on the CPU
+PHRASE_SEG_RUN = """
+import sys
+import tantivy_tpu_torch as tt
+from tantivy_tpu_torch.ops import phrase_scorer
+
+b = tt.Schema.builder()
+b.add_text_field("body", tt.TEXT)
+index = tt.Index.create_in_ram(b.build())
+w = index.writer_for_tests()
+for i in range(600):
+    w.add_document(tt.Document(body=f"a{i % 7} b{i % 5} a{i % 3} b{i % 2}"))
+w.commit()
+w.close()
+searcher = index.reader().searcher()
+queries = [tt.PhraseQuery("body", ["a1", "b1"]),
+           tt.PhraseQuery("body", ["b1", "a1", "b1"])]
+ex = tt.BatchExecutor(searcher, device="cpu")
+got = ex.search_phrase_batch(queries, 5)
+for q, hits in zip(queries, got):
+    assert hits == searcher.search(q, tt.TopDocs(5)), q
+assert ex.plan_stats.get("phrase_seg_kw8", 0) > 0, ex.plan_stats
+assert phrase_scorer.launches == 0
+""" + LOADED
+
+
 #: the flat term scorer, pipelined batches, sharded search, count and agg
 #: batches and the warmer on the CPU
 SURFACE_RUN = """
@@ -195,6 +221,10 @@ def test_phrase_path_runs_without_jax():
 
 def test_probe_path_runs_without_jax():
     _run(PROBE_RUN)
+
+
+def test_phrase_seg_path_runs_without_jax():
+    _run(PHRASE_SEG_RUN)
 
 
 def test_executor_surface_runs_without_jax():

@@ -18,6 +18,7 @@ from tantivy_tpu.query.phrase_query import PhrasePrefixQuery
 from tantivy_tpu_torch import BatchExecutor
 from tantivy_tpu_torch import parallel as port_par
 from tantivy_tpu_torch.ops import fused_phrase as fp
+from tantivy_tpu_torch.ops import phrase_scorer as port_ph
 from tantivy_tpu_torch.ops.fused_store import FusedStore
 
 from test_device_phrase import build_phrase_index, sample_phrases
@@ -244,6 +245,15 @@ def test_position_store_matches_reference(corpus):
 
 def test_phrase_constants_match_reference():
     assert port_par.PHRASE_T_MAX == phrase_scorer.T_MAX
+    # the per-segment phrase planner's constants; the reference's W and
+    # term-count ladders pad XLA shapes and have no counterpart in the port
+    for name in ("T_MAX", "MAX_P", "_PW_LADDER", "MAX_OTHER_TF",
+                 "_WKW_LADDER", "MAX_KW", "_ITER_LADDER"):
+        assert getattr(port_ph, name) == getattr(phrase_scorer, name), name
+    for n in (1, 2, 255, 256, 257, 16384, 16385, 2**20):
+        assert port_ph._iter_bucket(n) == phrase_scorer._iter_bucket(n)
+    for n in (1, 16, 17, 32, 33, 64, 65, 256):
+        assert port_ph._pw_bucket(n) == phrase_scorer._pw_bucket(n)[0]
     assert fp._PHRASE_RUNGS == php._PHRASE_RUNGS
     assert (fp.ANCHOR_POS_CAP, fp.PARTNER_POS_CAP) == (
         php.ANCHOR_POS_CAP, php.PARTNER_POS_CAP)
