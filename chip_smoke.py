@@ -32,15 +32,18 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    the planner's `probe_deep` count); prints per suite QPS, p50,
    windowed-probe launches per rung, deep-path launches and host plans,
    then the phase's peak device memory;
-5b. per-segment phrase path: `executor.search_phrase_batch` (the
+5b. per-segment phrase path: `executor._search_phrase_seg` (the
    reference's per-segment Block-WAND phrase plan: kernel K6) on the
    bigram phrase log and on a log of 3- and 4-term phrases, one warm and
    TIMED_BATCHES timed batches each, with every launch counter reset just
    before and read just after (K6's launches must equal the planner's
-   `phrase_seg_*` count, and no other kernel may launch); prints per suite
-   QPS and p50 beside the main path's phrase suite (K2), K6 launches per
-   rung and host plans by reason; the bigram suite's hits must equal the
-   main path's phrase suite's list for list;
+   `phrase_seg` count, and no other kernel may launch); prints per suite
+   QPS and p50 beside the main path's phrase suite (K2), K6 launches and
+   host plans by reason (`phrase_seg_wide_window` among them, now 0); the
+   bigram suite's hits must equal the main path's phrase suite's list for
+   list; then one batch of the bigram log through `search_phrase_batch`,
+   which on the card must run the fused chain alone (K2, no K6) and give
+   the main path's hits;
 6. exactness: sampled queries of every suite of the three paths must give
    the host engine's hits (DocAddresses, order and f32 score bits);
 6a. pipelined: `executor.search_batches(..., pipeline=PIPELINE)` over the
@@ -101,7 +104,7 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    launched, replayed through their kernel; prints per kernel and suite
    the launches per timed batch, the kernel's device ms over the chunks
    (torch.profiler's kernel durations), the bytes they must move (K4's
-   and K6's: the 32-byte sectors their probes and position reads load),
+   and K6's: the 32-byte sectors of the work, whatever a build loads),
    the bound
    (those bytes at the card's memory rate; the kernels do no tensor-core
    work), the share of the bound the kernel reaches and its occupancy
@@ -155,8 +158,11 @@ SYNTH_PROBE = ((65536, 2, 2), (8192, 64, 4))
 PROBE_SUITES = ("term", "and", "or", "multi")
 #: the windowed-probe kernel's rungs (window rows kw)
 PROBE_RUNGS = (2, 8, 64)
-#: the per-segment phrase kernel's rungs (`plan_stats` phrase_seg_<rung>)
-PHRASE_SEG_RUNGS = ("kw8", "kw64", "wide")
+#: why the per-segment phrase plan sends a (query, segment) to the host
+#: engine (`fallbacks`); the port has no wide-window reason any more, and
+#: the smoke shows its count of 0
+PHRASE_SEG_HOST_REASONS = ("phrase_seg_leader_tf", "phrase_seg_partner_tf",
+                           "phrase_seg_wide_window")
 #: device memory rate of one H100 SXM (NVIDIA's data sheet), bytes per second:
 #: the kernels do no tensor-core work, so bytes bound them
 HBM_BYTES_PER_S = 3.35e12
@@ -530,30 +536,28 @@ def run_probe_path(executor, logs, n_seg: int):
 
 
 def run_phrase_seg(executor, logs, long_log, n_seg: int):
-    """`search_phrase_batch` (the per-segment phrase path, kernel K6) on
-    the bigram phrase log and on the 3-4 term phrase log: one warm batch,
-    then TIMED_BATCHES fresh batches each. Returns per-suite timings, with
-    the timed batches' K6 launches per rung and host plans by reason, and
-    the (query, hits) pairs of the timed batches."""
+    """The per-segment phrase plan (`executor._search_phrase_seg`, kernel
+    K6) on the bigram phrase log and on the 3-4 term phrase log: one warm
+    batch, then TIMED_BATCHES fresh batches each. Returns per-suite
+    timings, with the timed batches' K6 launches and host plans by reason,
+    and the (query, hits) pairs of the timed batches."""
     timing, answered = {}, {}
     for suite, qlog in (("phrase_seg", logs["phrase"]),
                         ("phrase_seg34", long_log)):
-        executor.search_phrase_batch(qlog[:BATCH], K)
+        executor._search_phrase_seg(qlog[:BATCH], K)
         fb0 = dict(executor.fallbacks)
         stats0 = dict(executor.plan_stats)
         counts0 = launch_counts()
         qps, p50_ms, pairs, batch_log = timed_batches(
-            executor.search_phrase_batch, qlog, executor.launch_log
+            executor._search_phrase_seg, qlog, executor.launch_log
         )
-        by_reason = {why: n - fb0.get(why, 0)
-                     for why, n in executor.fallbacks.items()
-                     if n != fb0.get(why, 0)}
+        by_reason = {why: executor.fallbacks.get(why, 0) - fb0.get(why, 0)
+                     for why in PHRASE_SEG_HOST_REASONS}
         timing[suite] = {
             "qps": qps,
             "p50_ms": p50_ms,
-            "k6_by_rung": {r: executor.plan_stats.get(f"phrase_seg_{r}", 0)
-                           - stats0.get(f"phrase_seg_{r}", 0)
-                           for r in PHRASE_SEG_RUNGS},
+            "k6_launches": executor.plan_stats.get("phrase_seg", 0)
+                           - stats0.get("phrase_seg", 0),
             "host_plans": sum(by_reason.values()),
             "host_by_reason": by_reason,
             "plans": len(pairs) * n_seg,
@@ -1026,10 +1030,13 @@ def seg_phrase_calls(rec, rows=None):
 # once each distinct input byte the chunk needs, and each output byte:
 # the scalar rows, the plan-row tables, the member cstore rows, the probed
 # cstore window rows (docs and tfs) or postore sub-ranges (position and
-# owner), and the [W, kk] scores and docs. The cstore and postore ranges
-# are those the kernel reads, computed from the chunk's real rows as the
-# kernel computes them. K4's probes read a few words of rows spread over
-# wide regions, so its counter counts the 32-byte sectors they load.
+# owner), and the [W, kk] scores and docs. For K1-K3 and K5 the cstore and
+# postore ranges are those the kernel reads, computed from the chunk's
+# real rows as the kernel computes them. K4's and K6's probes need a few
+# words of rows spread over wide regions, so their counters count 32-byte
+# sectors of the work itself, whatever a build loads: the sector that
+# settles each probe, the hits' tf sectors and the positions compared, and
+# no search step; every build of K4 or K6 is read against that one bound.
 
 
 def _covered(n: int, lo, hi) -> np.ndarray:
@@ -1170,88 +1177,59 @@ SECTOR_WORDS = SECTOR // 4
 ROW_SECTORS = 384 // SECTOR_WORDS
 
 
-def lower_bound4_reads(keys, lo, n, doc):
-    """K4's `lower_bound4` (csrc/deep_probe.cu) over many probes at once:
-    the first index i in [lo, lo + n) with keys[i] >= doc, or lo + n, and
-    the indices of every key its steps load (3 pivots a step, a quarter
-    kept). `lo`, `n` and `doc` are int64 tensors of one length."""
+def region_lower_bound(keys, lo, hi, doc):
+    """The first index i in [lo, hi) with keys[i] >= doc, or hi, over many
+    probes at once (binary steps); keys ascend inside each [lo, hi).
+    `lo`, `hi` and `doc` are int64 tensors of one length."""
     import torch
 
-    lo, n, reads = lo.clone(), n.clone(), []
-    while bool((n > 0).any()):
-        on = n > 0
-        q = (n + 3) >> 2
-        k = torch.zeros_like(n)
-        for i in (1, 2, 3):
-            use = on & (i * q <= n)
-            idx = lo + i * q - 1
-            reads.append(idx[use])
-            below = keys[idx.clamp(0, keys.numel() - 1)].long() < doc
-            k += (use & below).long()
-        lo = torch.where(on, lo + k * q, lo)
-        n = torch.where(on, torch.where((k < 3) & ((k + 1) * q <= n),
-                                        q - 1, n - k * q), n)
-    return lo, (torch.cat(reads) if reads else lo[:0])
+    lo, hi = lo.clone(), hi.clone()
+    while bool((lo < hi).any()):
+        on = lo < hi
+        mid = (lo + hi) >> 1
+        below = keys[mid.clamp(0, keys.numel() - 1)].long() < doc
+        lo = torch.where(on & below, mid + 1, lo)
+        hi = torch.where(on & ~below, mid, hi)
+    return lo
 
 
-def probe_row_reads(cstore, row, doc):
-    """`probe_row_at` (csrc/row_probe.cuh) over many probes at once, each
-    doc in its row: (found, tf, lane, the cstore sectors it loads): two
-    steps of 3 pivots (the 32-doc block, then the 8-doc octet), then the
-    octet's 8 docs and their 8 tfs (one sector each). `row` and `doc` are
-    int64 tensors of one length."""
+def probe_sectors(cstore, blk_last, lo, hi, doc):
+    """Where each doc lies in the rows [lo, hi) of a region, and the
+    sectors that settle it: the row that holds the doc or would (the first
+    whose last doc is >= it; `hi` when none), the lane of the doc's lower
+    bound in that row, whether the doc is there, its tf, and the cstore
+    sector of that lane's doc (for the probes with a row) and of its tf
+    (for the hits)."""
     import torch
 
-    flat = cstore.view(-1)
-    base = torch.zeros_like(row)
-    out = []
-    for span in (32, 8):
-        k = torch.zeros_like(row)
-        for i in (1, 2, 3):
-            w = base + i * span - 1
-            out.append(row * ROW_SECTORS + w // SECTOR_WORDS)
-            k += (flat[row * 384 + w].long() < doc).long()
-        base += k * span
-    out.append(row * ROW_SECTORS + base // SECTOR_WORDS)
-    out.append(row * ROW_SECTORS + (128 + base) // SECTOR_WORDS)
-    octet = flat[(row * 384 + base)[:, None]
-                 + torch.arange(8, device=row.device)].long()
-    hit = octet == doc[:, None]
-    lane = base + hit.int().argmax(dim=1)
-    return (hit.any(dim=1), flat[row * 384 + 128 + lane].long(), lane,
-            torch.cat(out))
-
-
-def probe_window_reads(cstore, a, b, doc):
-    """`probe_window_at`'s fence search (csrc/row_probe.cuh) over many
-    probes at once, rows [a, b) with a < b: the row it settles on and the
-    cstore word of every fence it loads (3 a step, a quarter kept)."""
-    import torch
-
-    flat = cstore.view(-1)
-    row, n, reads = a.clone(), b - a, []
-    while bool((n > 1).any()):
-        on = n > 1
-        q = (n + 3) >> 2
-        k = torch.zeros_like(n)
-        for i in (1, 2, 3):
-            use = on & (i * q < n)
-            idx = (row + i * q) * 384
-            reads.append(idx[use])
-            k += (use & (flat[idx.clamp(0, flat.numel() - 1)].long()
-                         <= doc)).long()
-        row = torch.where(on, row + k * q, row)
-        n = torch.where(on, torch.minimum(q, n - k * q), n)
-    return row, (torch.cat(reads) if reads else row[:0])
+    row = region_lower_bound(blk_last, lo, hi, doc)
+    has = row < hi
+    r = row[has]
+    d = doc[has]
+    lane = torch.searchsorted(cstore[r, :128].contiguous(),
+                              d[:, None].to(cstore.dtype))[:, 0].long()
+    lane = lane.clamp(max=127)
+    hit = torch.zeros_like(has)
+    hit[has] = cstore[r, lane].long() == d
+    tf = torch.zeros_like(doc)
+    lane_all = torch.zeros_like(doc)
+    lane_all[has] = lane
+    tf[hit] = cstore[row[hit], 128 + lane_all[hit]].long()
+    doc_sec = r * ROW_SECTORS + lane // SECTOR_WORDS
+    tf_sec = (row[hit] * ROW_SECTORS + 16
+              + lane_all[hit] // SECTOR_WORDS)
+    return row, lane_all, hit, tf, doc_sec, tf_sec
 
 
 def deep_probe_bytes(rec, rows) -> int:
-    """Kernel K4: the distinct 32-byte sectors its probes load, each once,
-    emulated as the kernel runs them: each real item's own row (docs, tfs,
-    cachev: 48 sectors); for each live lane and each other clause with a
-    region, the `blk_last` sectors of every step of `lower_bound4` and,
-    when it lands inside the region, the row sectors `probe_row` loads.
-    Sectors are counted from the start of `cstore` and `blk_last` (torch
+    """Kernel K4: the bytes one chunk's work needs, as distinct 32-byte
+    sectors, whatever a kernel loads: each real item's own row (docs, tfs
+    and denominators: 48 sectors); for each live lane and each other clause
+    with a region, the docs sector of the region row that holds its doc or
+    would (the first whose last doc is at least it; none past the region)
+    and, on a hit, its tf sector; plus the launch rows, the tables and the
+    [W, kk] outputs. No search step (`blk_last` words, fences, pivots)
+    counts. Sectors are counted from the start of `cstore` (torch
     allocations start on a 512-byte boundary)."""
     import torch
 
@@ -1267,7 +1245,6 @@ def deep_probe_bytes(rec, rows) -> int:
     member = torch.unique(bid)
     row_sec = [(member[:, None] * ROW_SECTORS
                 + torch.arange(ROW_SECTORS, device=bid.device)).view(-1)]
-    last_sec = []
     cl_start = rec["tables"][2].to(bid.device).long()
     cl_len = rec["tables"][3].to(bid.device).long()
     for t in range(cl_start.shape[1]):
@@ -1275,15 +1252,10 @@ def deep_probe_bytes(rec, rows) -> int:
         e = torch.minimum(s + cl_len[q, t], torch.full_like(s, nb))
         probed = (lcl != t) & (s >= 0) & (e > s)
         item, lane = torch.nonzero(lane_ok & probed[:, None], as_tuple=True)
-        d, s, e = docs[item, lane], s[item], e[item]
-        row, reads = lower_bound4_reads(blk_last, s, e - s, d)
-        last_sec.append(reads // SECTOR_WORDS)
-        hit = row < e
-        row_sec.append(probe_row_reads(cstore, row[hit], d[hit])[3])
-    n_sec = torch.unique(torch.cat(row_sec)).numel()
-    if last_sec:
-        n_sec += torch.unique(torch.cat(last_sec)).numel()
-    return (SECTOR * n_sec
+        *_, doc_sec, tf_sec = probe_sectors(cstore, blk_last, s[item],
+                                            e[item], docs[item, lane])
+        row_sec += [doc_sec, tf_sec]
+    return (SECTOR * torch.unique(torch.cat(row_sec)).numel()
             + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
 
 
@@ -1306,17 +1278,19 @@ def _pos_sectors(n_pos: int, idx):
 
 
 def seg_phrase_bytes(rec, rows) -> int:
-    """Kernel K6: the distinct 32-byte sectors it loads, each once,
-    emulated as the kernel runs them: each real item's docs and
-    denominators (32 sectors), the `blk_last` sectors of each term's window
-    search, and for each live lane and term in order until one misses, the
-    window's fence words and `probe_row_at`'s sectors, then on a hit the
-    row's tf sectors before the lane and the row's `blk_pos` entry; for the
-    lanes every term holds, the leader's first min(tf, MAX_P) positions and
-    each other term's positions up to where its cursor stops (in term
-    order, until no leader position is left matching). Sectors count from
-    the start of each tensor (torch allocations start on a 512-byte
-    boundary)."""
+    """Kernel K6: the bytes one chunk's work needs, as distinct 32-byte
+    sectors, whatever a kernel loads: each real item's docs and
+    denominators (32 sectors); for each live lane and each term it reaches
+    (in term order until one misses), the docs sector of the window row
+    that holds its doc or would (the first whose last doc is at least it;
+    none past the window) and, on a hit, its tf sector and the row's
+    `blk_pos` entry; for the lanes every term holds, the leader's first
+    min(tf, MAX_P) positions and each other term's positions up to the
+    first at or above the leader's last aligned position (in term order,
+    until no leader position is left matching); plus the launch rows, the
+    tables and the [W, kk] outputs. No search step (`blk_last` words,
+    fences, pivots) counts. Sectors count from the start of each tensor
+    (torch allocations start on a 512-byte boundary)."""
     import torch
 
     from tantivy_tpu_torch.ops.phrase_scorer import MAX_P
@@ -1340,17 +1314,16 @@ def seg_phrase_bytes(rec, rows) -> int:
     ar = torch.arange(16, device=dev)
     row_sec = [(member[:, None] * ROW_SECTORS + ar).view(-1),
                (member[:, None] * ROW_SECTORS + 32 + ar).view(-1)]
-    last_sec, bp_sec, pos_sec = [], [], []
-    # each term's window [lo, hi), from the item's first doc
+    bp_sec, pos_sec = [], []
+    # each term's window [lo, hi): from the lower bound of the item's first
+    # doc, kw rows, cut to the region (empty for an empty region)
     s = cl_start[q].long()
     n = cl_len[q].long()
     e = torch.clamp(s + n, max=nb)
     lo, hi = s.clone(), s.clone()
     for t in range(T):
         ok = (n[:, t] > 0) & (s[:, t] >= 0) & (e[:, t] > s[:, t])
-        j, reads = lower_bound4_reads(blk_last, s[ok, t], (e - s)[ok, t],
-                                      docs[ok, 0])
-        last_sec.append(reads // SECTOR_WORDS)
+        j = region_lower_bound(blk_last, s[ok, t], e[ok, t], docs[ok, 0])
         lo[ok, t] = j
         hi[ok, t] = torch.minimum(j + kw, e[ok, t])
     item, lane = torch.nonzero(live, as_tuple=True)
@@ -1359,22 +1332,19 @@ def seg_phrase_bytes(rec, rows) -> int:
     tf_t = torch.zeros((d.numel(), T), dtype=torch.long, device=dev)
     pb_t = torch.zeros_like(tf_t)
     for t in range(T):
-        a, b = lo[item, t], hi[item, t]
-        at = torch.nonzero(act & (b > a), as_tuple=True)[0]
-        row, fences = probe_window_reads(cstore, a[at], b[at], d[at])
-        row_sec.append(fences // SECTOR_WORDS)
-        found, tf, ln, secs = probe_row_reads(cstore, row, d[at])
-        row_sec.append(secs)
-        hit, row, ln = at[found], row[found], ln[found]
-        row_sec.append(_spans(row * ROW_SECTORS + 16, (ln + 7) // 8))
+        at = torch.nonzero(act, as_tuple=True)[0]
+        row, ln, hit, tf, doc_sec, tf_sec = probe_sectors(
+            cstore, blk_last, lo[item[at], t], hi[item[at], t], d[at])
+        row_sec += [doc_sec, tf_sec]
+        h, row, ln = at[hit], row[hit], ln[hit]
         bp_sec.append(row // SECTOR_WORDS)
         excl = (torch.cumsum(cstore[row, 128:256].long(), 1)
                 - cstore[row, 128:256].long())
-        tf_t[hit, t] = tf[found]
-        pb_t[hit, t] = (blk_pos[row].long()
-                        + excl.gather(1, ln[:, None])[:, 0])
+        tf_t[h, t] = tf[hit]
+        pb_t[h, t] = (blk_pos[row].long()
+                      + excl.gather(1, ln[:, None])[:, 0])
         act = torch.zeros_like(act)
-        act[hit] = True
+        act[h] = True
     # the count, for the lanes every term holds
     sel = torch.nonzero(act, as_tuple=True)[0]
     ld = lead[item[sel]]
@@ -1409,7 +1379,7 @@ def seg_phrase_bytes(rec, rows) -> int:
         m = vals.gather(1, at.clamp(max=pw - 1)) == target
         mask[use] &= m
     n_sec = sum(torch.unique(torch.cat(x)).numel()
-                for x in (row_sec, last_sec, bp_sec, pos_sec) if x)
+                for x in (row_sec, bp_sec, pos_sec) if x)
     return (SECTOR * n_sec
             + _small_bytes(rows, rec["tables"], min(rec["k"], 128)))
 
@@ -1859,7 +1829,7 @@ def profile_layers(executor, packed_executor, stream, seed: int,
                    path: str) -> None:
     """Per-layer breakdown of one fresh batch per suite of both paths (the
     probe path's suites are named `probe_*`), of the phrase log through
-    `search_phrase_batch` (`phrase_seg`) and of the term log through
+    the per-segment plan (`phrase_seg`) and of the term log through
     `search_term_batch` on the dense and the packed executor
     (`term_batch`, `packed_term_batch`): an untraced batch, then
     another with the engine's host spans (`tantivy_tpu_torch.utils.trace`) and
@@ -1879,7 +1849,7 @@ def profile_layers(executor, packed_executor, stream, seed: int,
             for suite, qlog in logs.items()]
     runs += [(f"probe_{suite}", executor.search_boolean_batch, qlog)
              for suite, qlog in probe_logs(logs).items()]
-    runs.append(("phrase_seg", executor.search_phrase_batch, logs["phrase"]))
+    runs.append(("phrase_seg", executor._search_phrase_seg, logs["phrase"]))
 
     def term_batch(ex):
         return lambda qs, k: ex.search_term_batch([q.term for q in qs], k)
@@ -2090,8 +2060,8 @@ def main(argv=None) -> int:
         long_phrases(stream, args.seed, BATCH * (1 + TIMED_BATCHES)), n_seg)
     seg_counts = launch_counts()
     launches["seg_phrase"] = seg_counts["seg_phrase"]
-    seg_rungs = {r: executor.plan_stats.get(f"phrase_seg_{r}", 0)
-                 - stats0.get(f"phrase_seg_{r}", 0) for r in PHRASE_SEG_RUNGS}
+    seg_planned = (executor.plan_stats.get("phrase_seg", 0)
+                   - stats0.get("phrase_seg", 0))
     executor.launch_log = None
     main_phrase = timing["phrase"]
     for suite, tm in seg_timing.items():
@@ -2099,19 +2069,20 @@ def main(argv=None) -> int:
               f"{tm['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} ({gpu}), "
               f"against the main path's phrase suite (K2) "
               f"{main_phrase['qps']:.1f} QPS, p50 {main_phrase['p50_ms']:.1f} "
-              f"ms; seg_phrase launches by rung {tm['k6_by_rung']} "
+              f"ms; seg_phrase launches {tm['k6_launches']} "
               f"({tm['launches_per_batch'].get('seg_phrase', 0):.1f} per "
               f"timed batch); {tm['host_plans']} of {tm['plans']} (query, "
-              f"segment) plans ran on the host engine {tm['host_by_reason']}")
+              f"segment) plans ran on the host engine, by reason "
+              f"{tm['host_by_reason']}")
     print(f"launches on the per-segment phrase path: {seg_counts} "
-          f"(plan_stats by rung {seg_rungs}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"(planner's phrase_seg launches {seg_planned}); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if launches["seg_phrase"] == 0:
         raise AssertionError("the per-segment phrase path launched no "
                              "seg_phrase kernel")
-    if launches["seg_phrase"] != sum(seg_rungs.values()):
+    if launches["seg_phrase"] != seg_planned:
         raise AssertionError(f"seg_phrase launched {launches['seg_phrase']} "
-                             f"times, the planner counted {seg_rungs}")
+                             f"times, the planner counted {seg_planned}")
     others = {n: c for n, c in seg_counts.items() if c and n != "seg_phrase"}
     if others:
         raise AssertionError(f"the per-segment phrase path launched {others}")
@@ -2121,6 +2092,21 @@ def main(argv=None) -> int:
                              "phrase suite")
     print("phrase_seg: hits of the timed batches equal the main path's "
           "phrase suite list for list")
+    # search_phrase_batch's route on the card: the fused chain (K2)
+    zero_counts()
+    routed = executor.search_phrase_batch(
+        logs["phrase"][BATCH:2 * BATCH], K)
+    routed_counts = launch_counts()
+    if routed_counts["seg_phrase"] or not routed_counts["phrase_probe"]:
+        raise AssertionError(f"search_phrase_batch launched {routed_counts} "
+                             "on the card, not the fused chain alone")
+    if [bits(h) for h in routed] != [
+            bits(h) for _, h in answered["phrase"][:BATCH]]:
+        raise AssertionError("search_phrase_batch: hits differ from the "
+                             "main path's phrase suite")
+    print(f"search_phrase_batch on the card: the fused chain "
+          f"(phrase_probe launches {routed_counts['phrase_probe']}, "
+          f"seg_phrase 0), hits equal the main path's phrase suite")
 
     check_exact(searcher, {**answered, **probe_answered, **seg_answered},
                 args.seed)

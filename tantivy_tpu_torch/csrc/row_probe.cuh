@@ -1,9 +1,9 @@
 // The probe shared by the port's probe kernels (K1, K3, K4 and K6): is a
 // lane's doc in a window of cstore rows of one term region, and with what
-// tf? (K4 finds its row by `lower_bound4` over the blocks' last docs and
-// uses only `probe_row`; K6 finds its window's first row the same way and
-// takes the row and lane of the hit from the `_at` forms, which the other
-// forms call.)
+// tf? (K4 and K6 bound each term's rows by `warp_lower_bound` over the
+// blocks' last docs, then find a lane's row by `lower_bound_shared` over
+// staged last docs or by `lower_bound4`, and settle it with `probe_row` or
+// `probe_row_at`, the `_at` form giving the lane of the hit.)
 //
 // Precondition (checked where the fused store is built, and the callers
 // clip every window to its region): inside a region docs ascend strictly
@@ -44,6 +44,45 @@ __device__ __forceinline__ long long lower_bound4(
     lo += k * q;
     // the pivot after the kept quarter, where one was loaded, is >= doc
     n = (k < 3 && (k + 1) * q <= n) ? q - 1 : n - k * q;
+  }
+  return lo;
+}
+
+// lower_bound4's answer found by a whole warp at once: each step loads up to
+// 32 pivots, one a lane, and one ballot keeps the 32nd that holds the
+// answer, so a region of n rows takes ceil(log32(n + 1)) steps. Every lane
+// of the warp calls it with the same arguments and gets the answer.
+__device__ __forceinline__ long long warp_lower_bound(
+    const int32_t* __restrict__ keys, long long lo, long long n,
+    int32_t doc) {
+  const int wl = threadIdx.x & 31;
+  // the answer lies in [lo, lo + n]
+  while (n > 0) {
+    const long long q = (n + 31) >> 5;
+    const long long at = (long long)(wl + 1) * q;
+    const bool below = at <= n && __ldg(keys + lo + at - 1) < doc;
+    // keys ascend, so the pivots below doc are a prefix of the lanes
+    const long long k = __popc(__ballot_sync(0xffffffffu, below));
+    lo += k * q;
+    // the pivot after the kept part, where one was loaded, is >= doc
+    n = (k + 1) * q <= n ? q - 1 : n - k * q;
+  }
+  return lo;
+}
+
+// The first index i in [0, n) with keys[i] >= doc, or n, over keys in
+// shared memory (binary steps).
+__device__ __forceinline__ int lower_bound_shared(const int32_t* keys, int n,
+                                                  int32_t doc) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (keys[lo + half] < doc) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
   }
   return lo;
 }

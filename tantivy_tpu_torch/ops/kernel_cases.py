@@ -35,7 +35,11 @@ K4 kinds (`deep_case`), each lane doc looked up in whole clause regions:
   docs, a doc of every fourth row, docs below and above every region and
   docs between rows;
 * "t16": 16 clauses, partner regions of 1 to 300 rows (search depth 15),
-  two of them empty (terms the segment lacks), MUST, SHOULD and MUST_NOT.
+  two of them empty (terms the segment lacks), MUST, SHOULD and MUST_NOT;
+* "stage_edges": two clauses, each item's live docs spread over partner
+  ranges of 1 row (every live lane in one row), 2,047, 2,048 and 2,049
+  rows (below, at and above the kernel's staged `blk_last` cap) and 3
+  rows with one live lane; docs of the partner and docs between them.
 K5 kinds (`packed_case`), packed mirrors built from random deltas:
 * "widths": a block of every doc width (0 to 32) at full and short
   lengths, tf rows of every width, words with the top bit set (width-32
@@ -59,7 +63,12 @@ whose docs hold planted aligned phrase positions among random ones:
 * "deleted": 40% of the docs deleted, 4 terms;
 * "t8": 8 terms, the leader in the middle;
 * "ties": one match in every lane's doc, one field-norm id and one weight:
-  every live lane of a query ties.
+  every live lane of a query ties;
+* "stage_edges": one bigram whose leader rows spread over partner ranges
+  of 1 row (every live lane in one row), 10, 11 and 12 rows (with the
+  leader's own row: below, at and above the kernel's 12 staged rows), 511,
+  512 and 513 rows (below, at and above its 512 staged `blk_last` words),
+  and 3 rows with one live lane, kw = 1,024.
 """
 
 from __future__ import annotations
@@ -74,10 +83,10 @@ KIND_MUST, KIND_SHOULD, KIND_MUST_NOT, KIND_ABSENT = 0, 1, 2, 3
 
 GROUP_KINDS = ("ties", "t16", "wide", "oversized")
 BOOL_KINDS = ("every_row", "store_end")
-DEEP_KINDS = ("ladder_edge", "t16")
+DEEP_KINDS = ("ladder_edge", "t16", "stage_edges")
 PACKED_KINDS = ("widths", "no_freqs", "ties")
 PHRASE_KINDS = ("leader_tf16", "partner_tf256", "window_1024", "store_end",
-                "deleted", "t8", "ties")
+                "deleted", "t8", "ties", "stage_edges")
 _WIDTHS = (0, 1, 2, 4, 8, 16, 32)
 
 #: items of every synthetic chunk
@@ -85,11 +94,12 @@ CHUNK_W = 64
 _MAX_DOC = 1_000_000
 
 
-def _store(regions, rng, dead: float):
+def _store(regions, rng, dead: float, kill=()):
     """[NB, 384] u32 store holding each sorted doc array of `regions` as one
-    term region starting on an 8-row boundary; returns (cstore, region
-    starts, region lengths in rows, the arrays it was built from: docs and
-    tfs [NB, 128] u32, norm_ids, alive, cache)."""
+    term region starting on an 8-row boundary, with the docs `kill` deleted
+    besides a random share `dead`; returns (cstore, region starts, region
+    lengths in rows, the arrays it was built from: docs and tfs [NB, 128]
+    u32, norm_ids, alive, cache)."""
     docs, tfs, starts, lens = [], [], [], []
     at = 0
     for d in regions:
@@ -108,6 +118,7 @@ def _store(regions, rng, dead: float):
         at += nb
     norm_ids = rng.integers(0, 2, _MAX_DOC).astype(np.uint8)
     alive = rng.random(_MAX_DOC) >= dead
+    alive[np.asarray(kill, np.int64)] = False
     cache = np.resize(np.array([1.25, 2.5], np.float32), 256)
     docs, tfs = np.concatenate(docs), np.concatenate(tfs)
     cstore = build_cstore_np(docs, tfs, norm_ids, alive, cache)
@@ -133,6 +144,27 @@ def _first_last(cstore, lo: int, hi: int):
     """First and last real doc of store rows [lo, hi)."""
     d = cstore[lo:hi, :128].astype(np.int64)
     return d[:, 0], np.where(d != TERMINATED, d, -1).max(axis=1)
+
+
+def _span_rows(rng, part, spans, one_live: int):
+    """Item rows over the sorted partner docs `part` (rows of 128): the
+    item for span m takes the first doc of a partner row r0, the last of
+    row r0 + m - 1 and 126 other docs between them, partner docs or not;
+    the spans' rows follow one another after the partner's first row, so
+    the items' docs ascend across them. Returns (the items' sorted docs, the
+    docs to delete so that item `one_live` keeps only its first doc
+    live)."""
+    items, kill, r0 = [], [], 1
+    for i, m in enumerate(spans):
+        lo, hi = int(part[r0 * 128]), int(part[(r0 + m) * 128 - 1])
+        mid = rng.choice(np.arange(lo + 1, hi, dtype=np.int64), 126,
+                         replace=False)
+        d = np.sort(np.concatenate([[lo, hi], mid])).astype(np.uint32)
+        items.append(d)
+        if i == one_live:
+            kill.extend(d[1:])
+        r0 += m
+    return items, kill
 
 
 def _stride(slots: int) -> int:
@@ -309,6 +341,8 @@ def deep_case(kind: str, seed: int = 0) -> dict:
     every query. Each query has a second item, a row of the first partner
     region with that clause as its own."""
     rng = np.random.default_rng(4000 + 17 * seed + DEEP_KINDS.index(kind))
+    if kind == "stage_edges":
+        return _deep_stage_edges(rng, kind)
     if kind == "ladder_edge":
         T, Q = 3, 8
         # the first partner spans 2^(9-1) rows: the widest region the
@@ -374,6 +408,54 @@ def deep_case(kind: str, seed: int = 0) -> dict:
         req_should[q] = 0 if req_must[q] else 1
         rows[q] = (rstart[q], q, 0)
         rows[Q + q] = (rstart[Q] + int(rng.integers(0, lens[0])), q, 1)
+    return dict(kind=kind, rows=rows, T=T, num_queries=Q,
+                n_iters=_iter_bucket(int(cl_len.max())),
+                tables=(cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
+                        req_must, req_should),
+                cstore=cstore, blk_last=blk_last, parts=parts)
+
+
+#: "stage_edges" partner spans of K4's items, in rows; the last keeps one
+#: live lane
+_DEEP_SPANS = (1, 2047, 2048, 2049, 3)
+
+
+def _deep_stage_edges(rng, kind: str) -> dict:
+    """`deep_case("stage_edges")`: query q's clause 0 is item q's own row
+    (a one-row region), clause 1 a partner region shared by every query
+    (MUST for even q, SHOULD for odd q), whose rows the item's live docs
+    span by `_DEEP_SPANS`."""
+    T, Q = 2, len(_DEEP_SPANS)
+    n_rows = sum(_DEEP_SPANS) + 3
+    part = _sorted_docs(rng, n_rows * 128 - 50)
+    items, kill = _span_rows(rng, part, _DEEP_SPANS, Q - 1)
+    cstore, rstart, rlen, parts = _store(items + [part], rng, dead=0.0,
+                                         kill=kill)
+    docs = parts["docs"] = cstore[:, :128]
+    parts["tfs"] = cstore[:, 128:256]
+    real = docs != TERMINATED
+    blk_last = np.where(real.any(axis=1),
+                        np.where(real, docs, 0).max(axis=1),
+                        TERMINATED).astype(np.uint32)
+    cl_weight = np.zeros((Q + 1, T), np.float32)
+    cl_kind = np.full((Q + 1, T), KIND_ABSENT, np.int32)
+    cl_start = np.zeros((Q + 1, T), np.int32)
+    cl_len = np.zeros((Q + 1, T), np.int32)
+    cl_shipped = np.zeros((Q + 1, T), np.int32)
+    req_must = np.zeros(Q + 1, np.int32)
+    req_should = np.zeros(Q + 1, np.int32)
+    req_must[Q] = 1 << 30
+    rows = np.zeros((CHUNK_W, 3), np.int32)
+    rows[:, 1] = Q
+    for q in range(Q):
+        cl_start[q] = (rstart[q], rstart[Q])
+        cl_len[q] = (rlen[q], rlen[Q])
+        cl_kind[q] = (KIND_SHOULD, KIND_MUST if q % 2 == 0 else KIND_SHOULD)
+        cl_weight[q] = rng.integers(1, 4, T)
+        cl_shipped[q, 0] = 1
+        req_must[q] = int(q % 2 == 0)
+        req_should[q] = 1 - req_must[q]
+        rows[q] = (rstart[q], q, 0)
     return dict(kind=kind, rows=rows, T=T, num_queries=Q,
                 n_iters=_iter_bucket(int(cl_len.max())),
                 tables=(cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
@@ -473,7 +555,41 @@ _PHRASE_CFG = {
                lead_tf=(1, 6), part_tf=(1, 9), span=4096, dead=0.1),
     "ties": dict(T=2, Q=4, lead=0, kw=8, pw=16, lead_rows=2, part_rows=4,
                  lead_tf=(1, 2), part_tf=(1, 2), span=4096, dead=0.0),
+    "stage_edges": dict(T=2, Q=1, lead=0, kw=1024, pw=16, lead_tf=(1, 5),
+                        part_tf=(1, 7), span=4096, dead=0.0),
 }
+#: "stage_edges" partner spans of K6's leader rows, in rows; the last keeps
+#: one live lane
+_PHRASE_SPANS = (1, 10, 11, 12, 511, 512, 513, 3)
+
+
+def _edge_terms(rng, cfg):
+    """The "stage_edges" bigram: [(docs, tfs, per-doc positions)] of the
+    leader (term 0, its rows from `_span_rows`) and the partner, and the
+    docs to delete. Seven in ten leader docs the partner holds get a
+    planted match (the partner holds a leader position plus one)."""
+    n_rows = sum(_PHRASE_SPANS) + 3
+    part = _sorted_docs(rng, n_rows * 128 - 50)
+    items, kill = _span_rows(rng, part, _PHRASE_SPANS,
+                             len(_PHRASE_SPANS) - 1)
+    lead = np.concatenate(items)
+    out = []
+    for docs, tf_range in ((lead, cfg["lead_tf"]), (part, cfg["part_tf"])):
+        tf = rng.integers(*tf_range, len(docs))
+        pos = [np.sort(rng.choice(cfg["span"] - 1, n, replace=False))
+               for n in tf]
+        out.append([docs, tf, pos])
+    where = {int(d): i for i, d in enumerate(part)}
+    for i, d in enumerate(lead):
+        j = where.get(int(d))
+        if j is not None and rng.random() < 0.7:
+            want = out[0][2][i][int(rng.integers(0, out[0][1][i]))] + 1
+            pos = out[1][2][j]
+            if want not in pos:
+                pos[0] = want
+                out[1][2][j] = np.sort(pos)
+    return ([(d, np.asarray(tf, np.uint32), pos) for d, tf, pos in out],
+            kill)
 
 
 def _phrase_terms(rng, cfg, ties: bool):
@@ -554,9 +670,14 @@ def phrase_case(kind: str, seed: int = 0) -> dict:
     T, Q, lead = cfg["T"], cfg["Q"], cfg["lead"]
     ties = kind == "ties"
     docs, tfs, starts, lens, flat_pos = [], [], [], [], []
+    kill = []
+    if kind == "stage_edges":
+        edge, kill = _edge_terms(rng, cfg)
     at = 0
     for _ in range(Q):
-        for d, tf, pos in _phrase_terms(rng, cfg, ties):
+        terms = edge if kind == "stage_edges" else _phrase_terms(rng, cfg,
+                                                                 ties)
+        for d, tf, pos in terms:
             gap = (-at) % 8
             if gap:
                 docs.append(np.full((gap, 128), TERMINATED, np.uint32))
@@ -576,6 +697,7 @@ def phrase_case(kind: str, seed: int = 0) -> dict:
     norm_ids = (np.zeros(_MAX_DOC, np.uint8) if ties
                 else rng.integers(0, 2, _MAX_DOC).astype(np.uint8))
     alive = rng.random(_MAX_DOC) >= cfg["dead"]
+    alive[np.asarray(kill, np.int64)] = False
     cache = np.resize(np.array([1.25, 2.5], np.float32), 256)
     cstore = build_cstore_np(np.concatenate(docs), np.concatenate(tfs),
                              norm_ids, alive, cache)

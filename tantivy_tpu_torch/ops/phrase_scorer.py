@@ -61,11 +61,6 @@ MAX_P = 16
 _PW_LADDER = ((16, 16384), (32, 8192), (64, 4096), (256, 1024))
 #: beyond the widest rung the (query, segment) resolves on the host
 MAX_OTHER_TF = _PW_LADDER[-1][0]
-#: doc-probe window rungs (W cap, kw); the port takes only the kw values
-_WKW_LADDER = ((32768, 8), (4096, 64))
-#: widest device probe window; wider (query, segment) plans resolve on the
-#: host
-MAX_KW = 1024
 _ITER_LADDER = (9, 15, 21)
 #: window elements the twin gathers per term at once: it scores its items
 #: in slices whose doc windows (128 * kw an item) and position windows
@@ -235,7 +230,7 @@ def seg_phrase(rows, q_weight, cl_start, cl_len, cl_shift, cstore, postore,
         raise ValueError(f"{T} terms outside 1..{T_MAX}")
     if not 1 <= kk <= 128:
         raise ValueError(f"kk={kk} outside 1..128")
-    if not 1 <= kw <= MAX_KW or not MAX_P <= pw <= MAX_OTHER_TF:
+    if not 1 <= kw < 2**31 or not MAX_P <= pw <= MAX_OTHER_TF:
         raise ValueError(f"kw={kw} or pw={pw} out of range")
     if not 0 <= num_queries < Qp:
         raise ValueError(
@@ -285,25 +280,25 @@ def seg_phrase_topk(rows, tables, cstore, postore, blk_pos, blk_last, *,
 
 def dispatch_phrase(fused, slab, work_blocks, work_qid, work_term, tables,
                     k: int, num_queries: int, work_width, log=None,
-                    count=None) -> list:
+                    count=None):
     """Launch one (segment, field, term count) group's leader-block work
-    list: one launch per probe-window rung of the reference's ladder (kw 8,
-    kw 64, and wider items at kw = the next power of two of their widest,
-    at most MAX_KW), each with the position-window rung of its items'
-    largest query tf (`tables["q_max_tf"]`). The reference also splits
-    each kw rung by position-window rung and caps its chunks at W, to
-    bound the [W, 128, pw] windows XLA gathers; K6 gathers none, and its
+    list of one phase (at least one item): one launch, at kw = the next power of two of its
+    widest item's window (`work_width`, in rows) and the position-window
+    rung of its items' largest query tf (`tables["q_max_tf"]`). K6 narrows
+    each item's rows to its live docs' range, so neither a wide item nor a
+    wide kw costs the other items anything, and it gathers no window: the
+    reference's kw rungs, its split by position-window rung and its W caps
+    bounded the [W, kw * 128] and [W, 128, pw] windows XLA gathers. Its
     lanes read a term's first min(tf, pw) positions with pw at least that
-    tf, so its results do not depend on either split. Nor does it pad
-    chunks: the kernel takes the real items.
+    tf, so the results do not depend on the split. Nor does it pad chunks:
+    the kernel takes the real items.
 
     Planning works in the slab's own block ids; the slab's `offset` moves
     block ids and regions into the fused store's rows. `tables` = q_weight
     [Q+1] and cl_start / cl_len / cl_shift [Q+1, T] numpy arrays and
-    q_max_tf [Q+1]. When `log` is a list, each launch's exact inputs are
-    appended to it (kind="seg_phrase"); `count(kind)` is called once per
-    launch ("phrase_seg_kw8", "phrase_seg_kw64", "phrase_seg_wide").
-    Returns packed [2, Q, k] tensors on the store's device."""
+    q_max_tf [Q+1]. When `log` is a list, the launch's exact inputs are
+    appended to it (kind="seg_phrase"); `count("phrase_seg")` is called
+    once per launch. Returns packed [2, Q, k] i32 on the store's device."""
     off = slab["offset"]
     # one store tensor of each kind for the whole call (another batch may
     # replace them with grown copies meanwhile; rows only append)
@@ -324,46 +319,26 @@ def dispatch_phrase(fused, slab, work_blocks, work_qid, work_term, tables,
                 tables["cl_shift"].astype(np.int32),
             )
         )
-    work_ptf = tables["q_max_tf"][work_qid]
-    outs = []
-
-    def launch(sel, kw, kind):
-        pw = _pw_bucket(int(work_ptf[sel].max()))
-        rows = np.stack([work_blocks[sel] + off, work_qid[sel],
-                         work_term[sel]], axis=1).astype(np.int32)
-        rows_t = torch.from_numpy(rows).to(dev)
-        if log is not None:
-            log.append(dict(
-                kind="seg_phrase", rows=rows_t, tables=targs, cstore=cstore,
-                postore=postore, blk_pos=blk_pos, blk_last=blk_last, k=k,
-                num_queries=num_queries, kw=kw, pw=pw, n_iters=n_iters,
-                n_terms=T,
-            ))
-        with debug_time("phrase_seg.launch", n=len(rows)):
-            outs.append(seg_phrase_topk(
-                rows_t, targs, cstore, postore, blk_pos, blk_last, k=k,
-                num_queries=num_queries, kw=kw, pw=pw, n_iters=n_iters,
-            ))
-        if count is not None:
-            count(kind)
-
-    prev_kw = -1
-    for _, kwb in _WKW_LADDER:
-        sel = (work_width > prev_kw) & (work_width <= kwb)
-        if sel.any():
-            launch(sel, kwb, f"phrase_seg_kw{kwb}")
-        prev_kw = kwb
-    sel = work_width > prev_kw
-    if sel.any():
-        # very wide doc windows: kw widens to the items' widest (the
-        # planner sends wider ones to the host)
-        kw_needed = 1 << int(
-            np.ceil(np.log2(max(int(work_width[sel].max()), 2)))
+    kw = 1 << int(np.ceil(np.log2(max(int(np.max(work_width)), 1))))
+    pw = _pw_bucket(int(tables["q_max_tf"][work_qid].max()))
+    rows = np.stack([work_blocks + off, work_qid, work_term],
+                    axis=1).astype(np.int32)
+    rows_t = torch.from_numpy(rows).to(dev)
+    if log is not None:
+        log.append(dict(
+            kind="seg_phrase", rows=rows_t, tables=targs, cstore=cstore,
+            postore=postore, blk_pos=blk_pos, blk_last=blk_last, k=k,
+            num_queries=num_queries, kw=kw, pw=pw, n_iters=n_iters,
+            n_terms=T,
+        ))
+    with debug_time("phrase_seg.launch", n=len(rows)):
+        out = seg_phrase_topk(
+            rows_t, targs, cstore, postore, blk_pos, blk_last, k=k,
+            num_queries=num_queries, kw=kw, pw=pw, n_iters=n_iters,
         )
-        if kw_needed > MAX_KW:
-            raise AssertionError("planner must host-fallback wide phrases")
-        launch(sel, kw_needed, "phrase_seg_wide")
-    return outs
+    if count is not None:
+        count("phrase_seg")
+    return out
 
 
 def _lib() -> ctypes.CDLL:

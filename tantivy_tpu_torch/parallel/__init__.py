@@ -19,11 +19,13 @@ bucket) work lists -> `probe_scorer.dispatch_probe` -> the windowed-probe
 kernel (`bool_probe.bool_probe_topk`) or the deep per-lane probe, each
 with a per-segment merge tail. A fourth, `search_term_batch`, is the
 reference's flat term scorer (`ops/flat_scorer.py`, plain torch). A
-fifth is the reference's per-segment Block-WAND phrase path, reached only
-through `search_phrase_batch`: per (segment, field, term count) leader
-block work lists -> `phrase_scorer.dispatch_phrase` -> the per-segment
-phrase kernel (`phrase_scorer.seg_phrase_topk`) with a per-segment merge
-tail. All read the same fused store.
+fifth is the reference's per-segment Block-WAND phrase path
+(`_search_phrase_seg`), which `search_phrase_batch` takes off the card:
+per (segment, field, term count) leader block work lists ->
+`phrase_scorer.dispatch_phrase` -> the per-segment phrase kernel
+(`phrase_scorer.seg_phrase_topk`) with a per-segment merge tail; on the
+card `search_phrase_batch` runs the second chain. All read the same fused
+store.
 In packed mode (`mode="packed"`, the reference's) no fused store is built:
 `search_term_batch` runs the flat scorer's packed form, kernel K5 over each
 (segment, field)'s bit-packed mirror (`ops/packed_flat.py`), and
@@ -1568,22 +1570,18 @@ class BatchExecutor:
         return max(tot, 1)
 
     def search_phrase_batch(self, queries: list, k: int):
-        """Batched slop-0 phrase queries on the device through the
-        per-segment Block-WAND phrase path (the reference's search with its
-        fused chain off): candidates are the rarest (leader) term's blocks,
-        whose upper bound is the phrase weight times the leader block's
-        block-max tf factor (phrase tf <= leader tf); phase 1 ships each
-        (query, segment)'s best `_m1()` blocks, phase 2 the rest whose bound
-        beats the phase-1 threshold. Each (segment, field, term count)
-        work list runs through `phrase_scorer.dispatch_phrase` (kernel K6).
-        (query, segment) plans the device cannot run soundly resolve on the
-        host engine, counted in `fallbacks`: a leader block tf above
-        MAX_P ("phrase_seg_leader_tf"), any term's above MAX_OTHER_TF
-        ("phrase_seg_partner_tf"), a probe window wider than MAX_KW
-        ("phrase_seg_wide_window"). Multi-term phrase-prefixes, which that
-        path does not take, run the fused chain (`_search_phrase_fused`)
-        inside the same call. Every query must be device-eligible.
-        Returns list[list[(score, DocAddress)]]."""
+        """Batched slop-0 phrase and multi-term phrase-prefix queries on the
+        device. On the card every query runs the fused chain
+        (`_search_phrase_fused`, kernel K2), the reference's own route on
+        its accelerator (its `search_phrase_batch` returns the fused chain
+        in Pallas mode): at 1M docs the per-segment plan lost to it on the
+        bigram log in every run (PERF.md section 6), its host-engine plans
+        for leader blocks above MAX_P taking most of its batch. Elsewhere
+        (the CPU) slop-0 phrases run the per-segment Block-WAND plan
+        (`_search_phrase_seg`, kernel K6's twin), the reference's route off
+        Pallas, and multi-term phrase-prefixes, which that plan does not
+        take, the fused chain inside the same call. Every query must be
+        device-eligible. Returns list[list[(score, DocAddress)]]."""
         from ..query import PhrasePrefixQuery
 
         if self.mode == "packed":
@@ -1594,6 +1592,8 @@ class BatchExecutor:
                 raise ValueError(
                     f"not a device-eligible slop-0 phrase query: {q!r}"
                 )
+        if self.device.type == "cuda":
+            return self._search_phrase_fused(queries, k)
         prefixes = [i for i, q in enumerate(queries)
                     if type(q) is PhrasePrefixQuery]
         if not prefixes:
@@ -1611,7 +1611,19 @@ class BatchExecutor:
     def _search_phrase_seg(self, queries: list, k: int):
         """`search_phrase_batch`'s per-segment plan over slop-0
         `PhraseQuery`s (the reference's `search_phrase_batch` off Pallas,
-        `tantivy_tpu/parallel/__init__.py:2527-2634`)."""
+        `tantivy_tpu/parallel/__init__.py:2527-2634`): candidates are the
+        rarest (leader) term's blocks, whose upper bound is the phrase
+        weight times the leader block's block-max tf factor (phrase tf <=
+        leader tf); phase 1 ships each (query, segment)'s best `_m1()`
+        blocks, phase 2 the rest whose bound beats the phase-1 threshold.
+        Each (segment, field, term count) work list runs through
+        `phrase_scorer.dispatch_phrase` (kernel K6), one launch a phase.
+        (query, segment) plans the device cannot run soundly resolve on the
+        host engine, counted in `fallbacks`: a leader block tf above MAX_P
+        ("phrase_seg_leader_tf"), any term's above MAX_OTHER_TF
+        ("phrase_seg_partner_tf"); windows of any width run on the device
+        (the reference sends those wider than its MAX_KW, 1,024 rows, to
+        the host)."""
         from ..ops import phrase_scorer as ph
         from ..schema.term import Term
 
@@ -1688,10 +1700,6 @@ class BatchExecutor:
                               else np.zeros(len(ids), dtype=np.int64))
                     if not len(ids):
                         continue
-                    if int(widths.max(initial=0)) > ph.MAX_KW:
-                        # a near-singleton leader block spanning a dense
-                        # partner's region: no device window covers it
-                        why = "phrase_seg_wide_window"
                 if why is not None:
                     self._count_fallback(why)
                     with debug_time("phrase_seg.host_plan"):
@@ -1744,9 +1752,9 @@ class BatchExecutor:
                                         for _, t, ids, _ in g["p1"]])
                 wds = np.concatenate([wd for _, _, _, wd in g["p1"]])
                 self._count_plan("wand_p1", len(blocks))
-                for out in dispatch(seg_ord, field, g, blocks, qids, terms,
-                                    wds):
-                    pending1.append((seg_ord, out))
+                pending1.append(
+                    (seg_ord, dispatch(seg_ord, field, g, blocks, qids,
+                                       terms, wds)))
             seg_groups.append(groups)
         _dt1.__exit__(None, None, None)
         tag_phase(log0, 1)
@@ -1782,11 +1790,12 @@ class BatchExecutor:
                 if not blks:
                     continue
                 self._count_plan("wand_p2", sum(len(b) for b in blks))
-                for out in dispatch(seg_ord, field, g, np.concatenate(blks),
-                                    np.concatenate(qids),
-                                    np.concatenate(terms),
-                                    np.concatenate(wds)):
-                    pending2.append((seg_ord, out))
+                pending2.append(
+                    (seg_ord, dispatch(seg_ord, field, g,
+                                       np.concatenate(blks),
+                                       np.concatenate(qids),
+                                       np.concatenate(terms),
+                                       np.concatenate(wds))))
         _dt2.__exit__(None, None, None)
         tag_phase(log0, 2)
         with debug_time("phrase_seg.collect", n=len(pending2)):

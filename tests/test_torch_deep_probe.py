@@ -1,10 +1,12 @@
 """Kernel K4, the deep per-lane boolean probe (`ops/deep_probe.py`): its
 plain twin against the reference's XLA `probe_scorer.probe_bool_topk` on
-the synthetic hard cases of `ops/kernel_cases.py`, a numpy emulation of the
-kernel's 4-ary region search against the twin's fixed-depth binary search,
-the launch rows `dispatch_probe` builds against the inputs the reference
-hands its deep probe, the wrapper's checks, and (`cuda` marker) the kernel
-against the twin on the card.
+the synthetic hard cases of `ops/kernel_cases.py`, a numpy emulation of
+the kernel's first design (a 4-ary search over each whole clause region)
+against the twin's fixed-depth binary search, the smoke's sector count
+for K4 against a lane-by-lane count of the work and against what the
+first design loaded, the launch rows `dispatch_probe` builds against the
+inputs the reference hands its deep probe, the wrapper's checks, and
+(`cuda` marker) the kernel against the twin on the card.
 
 Every comparison feeds both sides the same inputs, made from a seed with
 numpy. Scores are compared as f32 bits, docs exactly."""
@@ -87,8 +89,9 @@ CASES = {**{kind: (lambda kind=kind, **kw: _hard(kind, **kw))
 def test_twin_matches_reference_on_hard_cases(kind, k):
     """`deep_probe_topk` on the CPU (the twin and the merge tail) equals
     the reference's XLA `probe_bool_topk` bit for bit, with the reference's
-    own search depth: at the ladder's edge (a 256-row region, n_iters = 9)
-    and with 16 clauses, two of them empty."""
+    own search depth: at the ladder's edge (a 256-row region, n_iters = 9),
+    with 16 clauses, two of them empty, and with live docs spread over
+    ranges below, at and above the kernel's staged `blk_last` cap."""
     case = kc.deep_case(kind)
     parts, Q = case["parts"], case["num_queries"]
     b, q, c = case["rows"].T
@@ -113,8 +116,10 @@ def test_twin_matches_reference_on_hard_cases(kind, k):
     assert np.isfinite(want[0].view(np.float32)).sum() >= min(k, 10) * Q // 2
     if kind == "ladder_edge":
         assert cl_len.max() == 1 << (n_iters - 1)
-    else:
+    elif kind == "t16":
         assert case["T"] == 16 and (cl_len[:Q] == 0).any()
+    else:
+        assert cl_len[0, 1] > sum(kc._DEEP_SPANS)
 
 
 def _lower_bound4(keys, lo, n, doc, reads=None):
@@ -190,22 +195,25 @@ def test_region_search_emulation_matches_twin_probe(kind):
         assert np.array_equal(tf.numpy()[hit], np.array(want_tf)[hit])
 
 
-@pytest.mark.parametrize("kind", list(CASES))
-def test_smoke_byte_count_is_the_sectors_the_probes_load(kind):
-    """The smoke's byte count for K4 (`chip_smoke.deep_probe_bytes`, all
-    probes at once in torch) is the distinct 32-byte sectors a
-    probe-by-probe emulation of the kernel loads: each real item's own row
-    (48 sectors), and for each live lane and other clause the `blk_last`
-    keys of `lower_bound4` and the row words `probe_row` reads; plus the
-    launch rows, the tables and the [W, kk] outputs."""
+def _sectors(kind):
+    """K4 on one chunk, probe by probe: (the distinct 32-byte sectors the
+    work needs, whatever a kernel loads: each real item's own row, and for
+    each live lane and other clause the docs sector of the region row that
+    holds its doc or would, and on a hit its tf sector; the distinct
+    sectors the kernel's first design loaded: the own rows, the `blk_last`
+    keys of
+    `lower_bound4` over the whole region and the row words `probe_row`
+    reads), and the smoke's record and bytes of the launch rows, tables
+    and [W, kk] outputs."""
     rows, tables, cstore, blk_last, Q, _ = CASES[kind]()
     r, st, bl = rows.numpy(), cstore.numpy(), blk_last.numpy()
     cl_start, cl_len = tables[2].numpy(), tables[3].numpy()
     nb = st.shape[0]
-    row_sec, last_sec = set(), set()
+    need, row_sec, last_sec = set(), set(), set()
     for bid, q, lcl in r:
         if not (0 <= q < Q and 0 <= bid < nb):
             continue
+        need.update(range(bid * 48, bid * 48 + 48))
         row_sec.update(range(bid * 48, bid * 48 + 48))
         docs = st[bid, :128]
         ok = (docs != TERMINATED) & ~np.isnan(st[bid, 256:].view(np.float32))
@@ -221,13 +229,40 @@ def test_smoke_byte_count_is_the_sectors_the_probes_load(kind):
                 if row < e:
                     _probe_row(st[row], d, words)
                     row_sec.update(row * 48 + w // 8 for w in words)
+                    at = int(np.searchsorted(st[row, :128], d))
+                    need.add(row * 48 + at // 8)
+                    if st[row, at] == d:
+                        need.add(row * 48 + 16 + at // 8)
     assert last_sec and len(row_sec) > 48
     small = (r.nbytes + sum(a.numel() * 4 for a in tables)
              + len(r) * 10 * 8)
     rec = dict(cstore=cstore, blk_last=blk_last, tables=tables,
                num_queries=Q, k=10)
-    assert chip_smoke.deep_probe_bytes(rec, rows) == (
-        32 * (len(row_sec) + len(last_sec)) + small)
+    return need, row_sec | {("last", i) for i in last_sec}, rec, rows, small
+
+
+@pytest.mark.parametrize("kind", list(CASES))
+def test_smoke_byte_count_is_the_sectors_the_probes_load(kind):
+    """The smoke's byte count for K4 (`chip_smoke.deep_probe_bytes`, all
+    probes at once in torch) is the distinct 32-byte sectors the work
+    needs, counted probe by probe here: each real item's own row (48
+    sectors), and for each live lane and other clause the docs sector of
+    the region row that holds its doc or would and, on a hit, its tf
+    sector; plus the launch rows, the tables and the [W, kk] outputs. One
+    bound for every build of K4."""
+    need, _, rec, rows, small = _sectors(kind)
+    assert chip_smoke.deep_probe_bytes(rec, rows) == 32 * len(need) + small
+
+
+@pytest.mark.parametrize("kind", list(CASES))
+def test_smoke_byte_count_is_at_most_what_the_first_design_loads(kind):
+    """The work the bound counts is at most what K4's first design (a 4-ary
+    search over each whole clause region, then `probe_row`) loaded, emulated
+    probe by probe: its probes loaded every sector the work needs, and
+    their search words besides."""
+    need, first, rec, rows, small = _sectors(kind)
+    assert need <= first
+    assert chip_smoke.deep_probe_bytes(rec, rows) < 32 * len(first) + small
 
 
 @pytest.mark.parametrize("kind", list(CASES))

@@ -245,10 +245,11 @@ def test_position_store_matches_reference(corpus):
 
 def test_phrase_constants_match_reference():
     assert port_par.PHRASE_T_MAX == phrase_scorer.T_MAX
-    # the per-segment phrase planner's constants; the reference's W and
-    # term-count ladders pad XLA shapes and have no counterpart in the port
+    # the per-segment phrase planner's constants the port keeps; the
+    # reference's W, kw and term-count ladders and its MAX_KW bound XLA
+    # shapes and have no counterpart in the port
     for name in ("T_MAX", "MAX_P", "_PW_LADDER", "MAX_OTHER_TF",
-                 "_WKW_LADDER", "MAX_KW", "_ITER_LADDER"):
+                 "_ITER_LADDER"):
         assert getattr(port_ph, name) == getattr(phrase_scorer, name), name
     for n in (1, 2, 255, 256, 257, 16384, 16385, 2**20):
         assert port_ph._iter_bucket(n) == phrase_scorer._iter_bucket(n)

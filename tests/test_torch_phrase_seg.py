@@ -56,8 +56,7 @@ def check(searcher, queries, k=10):
         assert bits(g) == bits(r), repr(q)
         assert bits(g) == bits(searcher.search(q, tt.TopDocs(k))), repr(q)
     seg = [rec for rec in port.launch_log if rec["kind"] == "seg_phrase"]
-    assert len(seg) == sum(n for kind, n in port.plan_stats.items()
-                           if kind.startswith("phrase_seg_"))
+    assert len(seg) == port.plan_stats.get("phrase_seg", 0)
     return port
 
 
@@ -169,8 +168,8 @@ def leader_tf_index():
 def wide_window_index():
     """`test_device_phrase.test_sparse_leader_dense_partner_wide_window`'s
     index: a five-doc leader block spans a dense partner's whole region, 32
-    rows (wider than MAX_KW once the test lowers it to 16 on both
-    executors)."""
+    rows (wider than the reference's MAX_KW once the test lowers it to 16
+    there)."""
     rng = np.random.default_rng(3)
     n = 4000
     rare = {1, 977, 1998, 2999, n - 1}
@@ -195,8 +194,7 @@ def tf17_partner_index():
 FALLBACKS = {
     "leader_tf": (leader_tf_index, ["ha", "ho"],
                   {"phrase_seg_leader_tf": 1}),
-    "wide_window": (wide_window_index, ["common", "rare"],
-                    {"phrase_seg_wide_window": 1}),
+    "wide_window": (wide_window_index, ["common", "rare"], {}),
     "partner_tf": (partner_tf_index, ["rare", "dense"],
                    {"phrase_seg_partner_tf": 1}),
     "tf17_partner": (tf17_partner_index, ["labor", "union"], {}),
@@ -206,19 +204,22 @@ FALLBACKS = {
 @pytest.mark.parametrize("case", list(FALLBACKS))
 def test_host_fallbacks(case, monkeypatch):
     """Each host fallback of the plan, counted once per (query, segment),
-    with the reference's hits; a 32-row window exceeds MAX_KW lowered to 16
-    in both packages (the reference's full-size case needs a partner of
-    more than 131,072 docs)."""
+    with the reference's hits. A window of any width runs on the device:
+    the 32-row window, which the reference sends to its host engine once
+    its MAX_KW is lowered to 16 (its full-size case needs a partner of more
+    than 131,072 docs), is one launch at kw = 32 on the port, with the
+    reference's (host-planned) hits and the host engine's."""
     if case == "wide_window":
         monkeypatch.setattr(ref_ph, "MAX_KW", 16)
-        monkeypatch.setattr(ph, "MAX_KW", 16)
     build, terms, want = FALLBACKS[case]
     searcher = build()
     q = tt.PhraseQuery("body", terms)
     assert searcher.search(q, tt.TopDocs(10))
     port = check(searcher, [q])
     assert port.fallbacks == want
-    if not want:
+    if case == "wide_window":
+        assert [rec["kw"] for rec in port.launch_log] == [32]
+    if case == "tf17_partner":
         # the true block max tf of `union` (17) picks the pw = 32 rung
         assert [rec["pw"] for rec in port.launch_log] == [32]
         dfp = port._device_segments[0].field_postings("body")
@@ -230,16 +231,17 @@ def test_host_fallbacks(case, monkeypatch):
 
 def test_one_launch_per_kw_rung(monkeypatch):
     """Plans of two position-window rungs (pw 16 and 32) in one group share
-    one kw = 8 launch at pw = 32, where the reference launches a chunk per
-    rung; the twin, scoring its items in slices of two, gives the same
-    hits."""
+    one launch at pw = 32, with kw the next power of two of the widest
+    item's window (8 here: widths count from the window start rounded down
+    to 8 rows), where the reference launches a chunk per rung; the twin,
+    scoring its items in slices of two, gives the same hits."""
     monkeypatch.setattr(ph, "_TWIN_WINDOW", 2 * 128 * 32)
     searcher = tf17_partner_index()
     queries = [tt.PhraseQuery("body", ["labor", "union"]),
                tt.PhraseQuery("body", ["labor", "relations"])]
     port = check(searcher, queries)
     assert [(rec["kw"], rec["pw"]) for rec in port.launch_log] == [(8, 32)]
-    assert port.plan_stats["phrase_seg_kw8"] == 1
+    assert port.plan_stats["phrase_seg"] == 1
 
 
 def test_twin_slices_give_one_pass(deep_corpus, monkeypatch):
@@ -255,9 +257,10 @@ def test_twin_slices_give_one_pass(deep_corpus, monkeypatch):
 
 
 def test_wide_rung():
-    """Leader blocks whose windows span more than 64 partner rows take the
-    wide rung (kw = the next power of two of the widest, here 128): `r`'s
-    one block spans `a`'s 71-row region."""
+    """Items of every window width share one launch per (term count,
+    phase), at kw = the next power of two of the widest: `r`'s one block
+    spans `a`'s 71-row region (kw = 128) in the bigram launch that also
+    holds the narrow blocks of `a h` and `h m`."""
     from test_torch_probe_path import build_wide_index
 
     searcher = build_wide_index()
@@ -265,8 +268,12 @@ def test_wide_rung():
                for terms in (["a", "r"], ["a", "h"], ["h", "m"],
                              ["a", "a", "m"])]
     port = check(searcher, queries)
-    assert port.plan_stats.get("phrase_seg_wide", 0) > 0
-    assert 128 in {rec["kw"] for rec in port.launch_log}
+    groups = [(rec["n_terms"], rec["phase"]) for rec in port.launch_log]
+    assert len(groups) == len(set(groups))  # one segment
+    bigram = [rec for rec in port.launch_log
+              if (rec["n_terms"], rec["phase"]) == (2, 1)]
+    assert [rec["kw"] for rec in bigram] == [128]
+    assert set(bigram[0]["rows"][:, 1].tolist()) == {0, 1, 2}
 
 
 def test_prefixes_run_the_fused_chain(corpus):
@@ -307,15 +314,17 @@ def test_ineligible_queries_raise(corpus):
 
 
 def test_chunks_match_reference_probe(deep_corpus, monkeypatch):
-    """Each chunk the port launches holds the reference's chunk: the same
-    leader blocks (docs of its fused-store rows), queries, leader terms,
-    regions, shifts, weights, rungs and search depth; and `seg_phrase_topk`
-    (the twin and the merge tail) on it gives the reference's
-    `probe_phrase_topk` result per query, bit for bit. The reference pads
-    each chunk (qid = num_queries); the port launches only the real
-    items. At this size every plan sits in the pw = 16 rung and no chunk
-    reaches a W cap, so the port's one launch per kw rung is the
-    reference's one chunk per (pw, kw) rung pair."""
+    """Each launch of the port holds the items of the reference's chunks of
+    its (segment, term count, phase) group, one chunk per kw rung: the same
+    leader blocks (docs of its fused-store rows), queries and leader terms,
+    with the same regions, shifts, weights, position rung and search
+    depth, at a kw (the next power of two of the widest item) no narrower
+    than any of their widths; and `seg_phrase_topk` (the twin and the
+    merge tail) on each chunk's items, with the launch's tables and kw,
+    gives the reference's `probe_phrase_topk` result per query, bit for
+    bit. The reference pads each chunk (qid = num_queries); the port
+    launches only the real items. At this size every plan sits in the
+    pw = 16 rung and no chunk reaches a W cap."""
     monkeypatch.setattr(jax_par, "_m1", lambda: 2)
     monkeypatch.setattr(port_par, "_m1", lambda: 2)
     searcher, _, texts = deep_corpus
@@ -335,34 +344,44 @@ def test_chunks_match_reference_probe(deep_corpus, monkeypatch):
     port.launch_log = []
     port.search_phrase_batch(to_port(queries), 7)
     recs = port.launch_log
-    assert len(recs) == len(calls) > 3
-    assert {rec["phase"] for rec in recs} == {1, 2}
-    for rec, (args, kw, want) in zip(recs, calls):
-        docs, q_pad, t_pad, valid = (np.asarray(a) for a in args[:4])
-        qw, cl_start, cl_len, cl_pos, cl_shift = (np.asarray(a)
-                                                  for a in args[12:17])
+    assert len(recs) > 3 and {rec["phase"] for rec in recs} == {1, 2}
+    calls = iter(calls)
+    n_split = 0
+    for rec in recs:
         rows = rec["rows"].numpy()
         st = rec["cstore"].numpy()
-        assert rows.shape[0] == int(valid.sum())
-        assert np.array_equal(st[rows[:, 0], :128].view(np.uint32),
-                              docs[valid])
-        assert np.array_equal(rows[:, 1], q_pad[valid])
-        assert np.array_equal(rows[:, 2], t_pad[valid])
+        keys = [(st[b, :128].tobytes(), q, t) for b, q, t in rows]
+        left = sorted(keys)
         tables = [t.numpy() for t in rec["tables"]]
-        assert np.array_equal(tables[0], qw)
-        assert np.array_equal(tables[2], cl_len)
-        assert np.array_equal(tables[3], cl_shift)
-        off = tables[1] - cl_start
-        assert (off[cl_len > 0] == off[cl_len > 0][0]).all()
-        assert (rec["kw"], rec["pw"], rec["n_iters"], rec["k"],
-                rec["num_queries"]) == (kw["kw"], kw["pw"], kw["n_iters"],
-                                        kw["k"], kw["num_queries"])
-        got = ph.seg_phrase_topk(
-            rec["rows"], rec["tables"], rec["cstore"], rec["postore"],
-            rec["blk_pos"], rec["blk_last"], k=rec["k"],
-            num_queries=rec["num_queries"], kw=rec["kw"], pw=rec["pw"],
-            n_iters=rec["n_iters"])
-        assert np.array_equal(got.numpy().view(np.uint32), want)
+        n_chunks = 0
+        while left:
+            args, kw, want = next(calls)
+            n_chunks += 1
+            docs, q_pad, t_pad, valid = (np.asarray(a) for a in args[:4])
+            qw, cl_start, cl_len, cl_pos, cl_shift = (np.asarray(a)
+                                                      for a in args[12:17])
+            mine = [(d.view(np.int32).tobytes(), q, t) for d, q, t in
+                    zip(docs[valid], q_pad[valid], t_pad[valid])]
+            at = [keys.index(key) for key in mine]
+            for key in mine:
+                left.remove(key)
+            assert np.array_equal(tables[0], qw)
+            assert np.array_equal(tables[2], cl_len)
+            assert np.array_equal(tables[3], cl_shift)
+            off = tables[1] - cl_start
+            assert (off[cl_len > 0] == off[cl_len > 0][0]).all()
+            assert (rec["pw"], rec["n_iters"], rec["k"],
+                    rec["num_queries"]) == (kw["pw"], kw["n_iters"],
+                                            kw["k"], kw["num_queries"])
+            got = ph.seg_phrase_topk(
+                rec["rows"][at], rec["tables"], rec["cstore"],
+                rec["postore"], rec["blk_pos"], rec["blk_last"],
+                k=rec["k"], num_queries=rec["num_queries"], kw=rec["kw"],
+                pw=rec["pw"], n_iters=rec["n_iters"])
+            assert np.array_equal(got.numpy().view(np.uint32), want)
+        n_split += n_chunks > 1
+    assert next(calls, None) is None
+    assert n_split > 0  # some launch holds two of the reference's rungs
 
 
 def test_search_batch_keeps_the_fused_chain(corpus):
@@ -392,8 +411,8 @@ def test_search_batch_keeps_the_fused_chain(corpus):
 
 @pytest.mark.cuda
 def test_phrase_path_launches_the_kernel_on_card(corpus):
-    """`search_phrase_batch` on the card sends every chunk through K6 (one
-    launch per `phrase_seg_*` chunk) and gives the CPU executor's hits,
+    """The per-segment phrase plan on the card sends every chunk through K6
+    (one launch per `phrase_seg` chunk) and gives the CPU executor's hits,
     5-7 term phrases included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -406,8 +425,30 @@ def test_phrase_path_launches_the_kernel_on_card(corpus):
         queries, 10)
     ex = BatchExecutor(psearcher, device="cuda")
     n0 = ph.launches
-    got = ex.search_phrase_batch(queries, 10)
-    n_chunks = sum(n for kind, n in ex.plan_stats.items()
-                   if kind.startswith("phrase_seg_"))
+    got = ex._search_phrase_seg(queries, 10)
+    n_chunks = ex.plan_stats.get("phrase_seg", 0)
     assert n_chunks > 0 and ph.launches - n0 == n_chunks
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_search_phrase_batch_runs_the_fused_chain_on_card(corpus):
+    """On the card `search_phrase_batch` runs every query, phrases and
+    phrase-prefixes alike, on the fused chain (K2), the reference's route
+    on its accelerator: no K6 launch, and the fused chain's hits on the
+    CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    searcher, words, texts = corpus
+    queries = to_port(phrases(texts, 8, 2, 51) + phrases(texts, 4, 3, 52)
+                      + [tt.PhrasePrefixQuery("body", [words[1], "w1"])])
+    psearcher = port_searcher(searcher)
+    want = BatchExecutor(psearcher, device="cpu")._search_phrase_fused(
+        queries, 10)
+    ex = BatchExecutor(psearcher, device="cuda")
+    ex.launch_log = []
+    n0 = ph.launches
+    got = ex.search_phrase_batch(queries, 10)
+    assert ph.launches == n0
+    assert {rec["kind"] for rec in ex.launch_log} == {"phrase"}
     assert got == want

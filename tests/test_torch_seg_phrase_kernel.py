@@ -1,9 +1,12 @@
 """Kernel K6, the per-segment phrase probe (`ops/phrase_scorer.py`): its
 plain twin against the reference's XLA `phrase_scorer.probe_phrase_topk` on
-the synthetic hard cases of `ops/kernel_cases.py`, a numpy emulation of the
-kernel (its window search, position lookup and cursor count) against the
-twin, the smoke's sector count for K6 against that emulation, the wrapper's
-checks, and (`cuda` marker) the kernel against the twin on the card.
+the synthetic hard cases of `ops/kernel_cases.py` (also at a kw narrower
+than some lanes' rows and at one wider than the reference's MAX_KW), a
+numpy emulation of the kernel's first design (its window search, position
+lookup and cursor count) against the twin, the smoke's sector count for
+K6 against a lane-by-lane count of the work and against what that design
+loaded, the wrapper's checks, and (`cuda` marker) the kernel against the
+twin on the card.
 
 Every comparison feeds both sides the same inputs, made from a seed with
 numpy. Scores are compared as f32 bits, docs exactly."""
@@ -45,9 +48,16 @@ def _port(case, device="cpu"):
             _t(case["blk_last"].view(np.int32), device))
 
 
-def _kw(case, kk):
-    return dict(num_queries=case["num_queries"], kk=kk, kw=case["kw"],
-                pw=case["pw"], n_iters=case["n_iters"])
+def _kw(case, kk, kw=None):
+    return dict(num_queries=case["num_queries"], kk=kk,
+                kw=case["kw"] if kw is None else kw, pw=case["pw"],
+                n_iters=case["n_iters"])
+
+
+#: (kind, kw) pairs at another window width than the case's: narrower than
+#: some lanes' rows (the window still clips them) and wider than the
+#: reference's MAX_KW of 1,024 rows
+OTHER_KW = [("stage_edges", 4), ("window_1024", 64), ("stage_edges", 2048)]
 
 
 @pytest.fixture(scope="module")
@@ -55,16 +65,20 @@ def cases():
     return {kind: kc.phrase_case(kind) for kind in kc.PHRASE_KINDS}
 
 
-@pytest.mark.parametrize("kind,k", [(kind, 10) for kind in kc.PHRASE_KINDS]
-                         + [("leader_tf16", 1), ("leader_tf16", 200),
-                            ("ties", 1), ("ties", 200)])
-def test_twin_matches_reference_on_hard_cases(cases, kind, k):
+@pytest.mark.parametrize("kind,k,kw",
+                         [(kind, 10, None) for kind in kc.PHRASE_KINDS]
+                         + [(kind, k, None) for kind in ("leader_tf16", "ties")
+                            for k in (1, 200)]
+                         + [(kind, 10, kw) for kind, kw in OTHER_KW])
+def test_twin_matches_reference_on_hard_cases(cases, kind, k, kw):
     """`seg_phrase_topk` on the CPU (the twin and the merge tail) equals
     the reference's XLA `probe_phrase_topk` bit for bit, each given the
     same leader blocks and tables: the reference reads its field store
     (docs, tfs, per-lane `pos_cum`, flat positions, norm ids, alive), the
     port the fused-store form of the same data."""
     case = cases[kind]
+    if kw is not None:
+        case = {**case, "kw": kw}
     parts, Q = case["parts"], case["num_queries"]
     b, q, lead = case["rows"].T
     q_weight, cl_start, cl_len, cl_shift = case["tables"]
@@ -124,20 +138,39 @@ def _probe_row_at(st, row, doc, words):
     return False, 0, 0
 
 
-def emulate(case, k=10):
-    """K6 on one chunk, lane by lane as the kernel runs: (per item the
-    reporting lanes as (score, lane, doc), the distinct 32-byte sectors of
-    cstore, blk_last, blk_pos and postore it loads)."""
-    st = case["cstore"].view(np.int32)
-    bl = case["blk_last"].view(np.int32)
-    pos = case["postore"].view(np.int32).reshape(-1)
-    blk_pos = case["blk_pos"]
-    n_pos = case["postore"].shape[0] * 128
+def _match_count(case, q, lead, tf, pb, load):
+    """The kernel's count for one lane every term holds (tf, pb per term):
+    a forward cursor per other term over the leader's first min(tf, MAX_P)
+    positions, in term order until none is left matching; `load(i)` reads
+    flat position i."""
     q_weight, cl_start, cl_len, cl_shift = case["tables"]
-    nb, T, Q = st.shape[0], case["T"], case["num_queries"]
-    kw, pw = case["kw"], case["pw"]
-    cwords, last, bp, psec = [], set(), set(), set()
-    out = []
+    jmax = min(tf[lead], ph.MAX_P)
+    lp = [load(pb[lead] + j) for j in range(jmax)]
+    mask = (1 << jmax) - 1
+    for t in range(case["T"]):
+        if mask == 0:
+            break
+        if t == lead:
+            continue
+        lim = min(tf[t], case["pw"])
+        c = 0
+        cur = load(pb[t]) if lim > 0 else 0
+        m = 0
+        for j in range(jmax):
+            target = lp[j] + int(cl_shift[q, lead] - cl_shift[q, t])
+            while c < lim and cur < target:
+                c += 1
+                if c < lim:
+                    cur = load(pb[t] + c)
+            if c < lim and cur == target:
+                m |= 1 << j
+        mask &= m
+    return bin(mask).count("1")
+
+
+def _position_loader(case, psec):
+    pos = case["postore"].view(np.int32).reshape(-1)
+    n_pos = case["postore"].shape[0] * 128
 
     def load(i):
         i = min(max(i, 0), n_pos - 1)
@@ -145,12 +178,45 @@ def emulate(case, k=10):
         psec.add(w // 8)
         return int(pos[w])
 
+    return load
+
+
+def _items(case):
+    """(bid, q, leader, live lanes) of each real item of the chunk."""
+    st = case["cstore"].view(np.int32)
+    nb, T, Q = st.shape[0], case["T"], case["num_queries"]
     for bid, q, lead in case["rows"]:
+        if not (0 <= q < Q and 0 <= bid < nb):
+            yield None
+            continue
+        cachev = st[bid, 256:].view(np.float32)
+        lanes = [lane for lane in range(128)
+                 if st[bid, lane] != TERMINATED and not np.isnan(cachev[lane])]
+        yield int(bid), int(q), min(max(int(lead), 0), T - 1), lanes
+
+
+def emulate(case, k=10):
+    """K6's first design on one chunk, lane by lane (a 4-ary search from
+    the item's first doc for each term's window, then per lane and term a
+    fence search and a row probe, the position index from `blk_pos` and
+    the row's earlier tfs, the forward cursor count): (per item the
+    reporting lanes as (score, lane, doc), the distinct 32-byte sectors it
+    loads: a dict of sets for cstore, blk_last, blk_pos and postore)."""
+    st = case["cstore"].view(np.int32)
+    bl = case["blk_last"].view(np.int32)
+    blk_pos = case["blk_pos"]
+    q_weight, cl_start, cl_len, cl_shift = case["tables"]
+    nb, T = st.shape[0], case["T"]
+    kw = case["kw"]
+    cwords, last, bp, psec = [], set(), set(), set()
+    load = _position_loader(case, psec)
+    out = []
+    for item in _items(case):
         reps = []
         out.append(reps)
-        if not (0 <= q < Q and 0 <= bid < nb):
+        if item is None:
             continue
-        lead = min(max(int(lead), 0), T - 1)
+        bid, q, lead, lanes = item
         cwords.extend(bid * 384 + i for i in range(128))
         cwords.extend(bid * 384 + 256 + i for i in range(128))
         win = []
@@ -164,11 +230,8 @@ def emulate(case, k=10):
                 win.append((lo, min(lo + kw, e)))
             else:
                 win.append((s, s))
-        for lane in range(128):
+        for lane in lanes:
             doc = st[bid, lane]
-            cachev = st[bid, 256 + lane:257 + lane].view(np.float32)[0]
-            if doc == TERMINATED or np.isnan(cachev):
-                continue
             tf, pb = [0] * T, [0] * T
             ok = True
             for t in range(T):
@@ -186,33 +249,64 @@ def emulate(case, k=10):
                 pb[t] = int(blk_pos[row]) + int(st[row, 128:128 + at].sum())
             if not ok:
                 continue
-            jmax = min(tf[lead], ph.MAX_P)
-            lp = [load(pb[lead] + j) for j in range(jmax)]
-            mask = (1 << jmax) - 1
-            for t in range(T):
-                if mask == 0:
-                    break
-                if t == lead:
-                    continue
-                lim = min(tf[t], pw)
-                c = 0
-                cur = load(pb[t]) if lim > 0 else 0
-                m = 0
-                for j in range(jmax):
-                    target = lp[j] + int(cl_shift[q, lead] - cl_shift[q, t])
-                    while c < lim and cur < target:
-                        c += 1
-                        if c < lim:
-                            cur = load(pb[t] + c)
-                    if c < lim and cur == target:
-                        m |= 1 << j
-                mask &= m
-            count = bin(mask).count("1")
+            count = _match_count(case, q, lead, tf, pb, load)
             if count:
                 cf = np.float32(count)
+                cachev = st[bid, 256 + lane:257 + lane].view(np.float32)[0]
                 reps.append((q_weight[q] * (cf / (cf + cachev)), lane, doc))
-    sectors = len({w // 8 for w in cwords}) + len(last) + len(bp) + len(psec)
+    sectors = dict(cstore={w // 8 for w in cwords}, blk_last=last,
+                   blk_pos=bp, postore=psec)
     return out, sectors
+
+
+def needed_sectors(case) -> int:
+    """K6's work on one chunk, lane by lane, as the distinct 32-byte
+    sectors it needs whatever a kernel loads: each real item's docs and
+    denominators; for each live lane and each term it reaches (in term
+    order until one misses), the docs sector of the window row that holds
+    its doc or would (the first whose last doc is at least it; none past
+    the window) and, on a hit, its tf sector and `blk_pos` entry; for the
+    lanes every term holds, the positions the cursor count reads."""
+    st = case["cstore"].view(np.int32)
+    bl = case["blk_last"].view(np.int32)
+    blk_pos = case["blk_pos"]
+    _, cl_start, cl_len, _ = case["tables"]
+    nb, T, kw = st.shape[0], case["T"], case["kw"]
+    csec, bp, psec = set(), set(), set()
+    load = _position_loader(case, psec)
+    for item in _items(case):
+        if item is None:
+            continue
+        bid, q, lead, lanes = item
+        csec.update(range(bid * 48, bid * 48 + 16))
+        csec.update(range(bid * 48 + 32, bid * 48 + 48))
+        win = []
+        for t in range(T):
+            s, n = int(cl_start[q, t]), int(cl_len[q, t])
+            e = min(s + n, nb)
+            lo = s
+            if n > 0 and s >= 0 and e > s:
+                lo = s + int(np.searchsorted(bl[s:e], st[bid, 0]))
+            win.append((lo, min(lo + kw, e) if e > s else s))
+        for lane in lanes:
+            doc = st[bid, lane]
+            tf, pb = [0] * T, [0] * T
+            for t in range(T):
+                lo, hi = win[t]
+                row = lo + int(np.searchsorted(bl[lo:hi], doc))
+                if row >= hi:
+                    break
+                at = int(np.searchsorted(st[row, :128], doc))
+                csec.add(row * 48 + at // 8)
+                if st[row, at] != doc:
+                    break
+                csec.add(row * 48 + 16 + at // 8)
+                bp.add(row // 8)
+                tf[t] = int(st[row, 128 + at])
+                pb[t] = int(blk_pos[row]) + int(st[row, 128:128 + at].sum())
+            else:
+                _match_count(case, q, lead, tf, pb, load)
+    return len(csec) + len(bp) + len(psec)
 
 
 @pytest.mark.parametrize("kind", kc.PHRASE_KINDS)
@@ -244,22 +338,40 @@ def test_emulation_matches_twin(cases, kind):
         assert (live == live[0]).all() and n_rep == 128 * 8 - 37 * 4
 
 
-@pytest.mark.parametrize("kind", kc.PHRASE_KINDS)
-def test_smoke_byte_count_is_the_sectors_k6_loads(cases, kind):
-    """The smoke's byte count for K6 (`chip_smoke.seg_phrase_bytes`, all
-    lanes at once in torch) is the distinct 32-byte sectors the lane-by-lane
-    emulation loads, plus the launch rows, the tables and the [W, kk]
-    outputs."""
-    case = cases[kind]
-    _, sectors = emulate(case)
+def _smoke_rec(case):
     rows, tables, cstore, postore, blk_pos, blk_last = _port(case)
     rec = dict(cstore=cstore, postore=postore, blk_pos=blk_pos,
                blk_last=blk_last, tables=tables, k=10,
                num_queries=case["num_queries"], kw=case["kw"],
                pw=case["pw"])
     small = rows.numel() * 4 + sum(t.numel() * 4 for t in tables)
+    return rec, rows, small + rows.shape[0] * 10 * 8
+
+
+@pytest.mark.parametrize("kind", kc.PHRASE_KINDS)
+def test_smoke_byte_count_is_the_sectors_k6_loads(cases, kind):
+    """The smoke's byte count for K6 (`chip_smoke.seg_phrase_bytes`, all
+    lanes at once in torch) is the distinct 32-byte sectors the work needs,
+    counted lane by lane here (`needed_sectors`), plus the launch rows, the
+    tables and the [W, kk] outputs: one bound for every build of K6."""
+    case = cases[kind]
+    rec, rows, small = _smoke_rec(case)
     assert chip_smoke.seg_phrase_bytes(rec, rows) == (
-        32 * sectors + small + rows.shape[0] * 10 * 8)
+        32 * needed_sectors(case) + small)
+
+
+@pytest.mark.parametrize("kind", kc.PHRASE_KINDS)
+def test_smoke_byte_count_is_at_most_what_the_first_design_loads(cases,
+                                                                 kind):
+    """The work the bound counts is at most what K6's first design loaded,
+    emulated lane by lane (`emulate`): it loaded every sector the work
+    needs, and its searches' words besides."""
+    case = cases[kind]
+    _, sectors = emulate(case)
+    rec, rows, small = _smoke_rec(case)
+    first = 32 * sum(len(x) for x in sectors.values()) + small
+    assert chip_smoke.seg_phrase_bytes(rec, rows) <= first
+    assert len(sectors["blk_last"]) > 0
 
 
 def test_twin_window_is_the_reference_window(cases):
@@ -307,7 +419,8 @@ def test_wrapper_takes_twin_on_cpu_and_checks_inputs(cases):
           *head[2:]), kw),
         (head, {**kw, "kk": 129}),
         (head, {**kw, "pw": 8}),
-        (head, {**kw, "kw": 2048}),
+        (head, {**kw, "kw": 0}),
+        (head, {**kw, "kw": 2**31}),
         (head, {**kw, "num_queries": case["num_queries"] + 1}),
     ]
     for (r, tb, st, po, bp, bl), k in bad:
@@ -324,12 +437,19 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kk", KKS)
-@pytest.mark.parametrize("kind", kc.PHRASE_KINDS)
-def test_kernel_matches_twin_on_card(cuda_device, cases, kind, kk):
+@pytest.mark.parametrize("kind,window", [(kind, None)
+                                         for kind in kc.PHRASE_KINDS]
+                         + OTHER_KW)
+def test_kernel_matches_twin_on_card(cuda_device, cases, kind, window, kk):
+    """The kernel equals the twin bit for bit on each hard case at kk = 1,
+    10 and 128, `stage_edges` holding ranges below, at and above the
+    kernel's 12 staged rows and 512 staged `blk_last` words, an item whose
+    live lanes all lie in one row and one with one live lane; also at kw
+    narrower than some lanes' rows and wider than 1,024."""
     case = cases[kind]
     rows, tables, cstore, postore, blk_pos, blk_last = _port(case,
                                                              cuda_device)
-    kw = _kw(case, kk)
+    kw = _kw(case, kk, window)
     n0 = ph.launches
     got = ph.seg_phrase(rows, *tables, cstore, postore, blk_pos, blk_last,
                         **kw)
