@@ -3,11 +3,10 @@
 Counterpart of `tantivy_tpu/ops/flat_scorer.py`. One call scores a mixed
 work list of (query, block) pairs and returns the per-query top-k, ordered
 (qid asc, score desc, doc asc): TopNComputer's tie-break. The reference's
-`flat_topk_kernel` is an XLA program (`jax.jit`), not a Pallas kernel, so
-here it is plain torch ops: a gather of the work items' store rows, BM25 as
-two correctly rounded ops (`tf / (tf + norm)`, then the weight; never
-`torch.compile`, which could contract them), a stable per-row top-kk and
-the packed-key merge tail of `probe_scorer`.
+`flat_topk_kernel` is an XLA program (`jax.jit`), not a Pallas kernel; its
+row stage (BM25 over the work items' store rows and each row's top-kk) is
+kernel K7's store form here (`ops/dense_flat.py`, `csrc/dense_flat.cu`),
+and the per-query merge is the packed-key merge tail of `probe_scorer`.
 
 The rows come from the executor's `FusedStore` instead of a second upload
 of the postings. A cstore row holds a block's docs (columns 0:128), tfs
@@ -34,32 +33,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dense_flat import dense_flat_store
 from .packed_flat import packed_flat_topk
 from .probe_scorer import pack_results, per_query_topk_from_rows
 
-#: work items per call: bounds the [W, 384] gather (50 MB at the top size)
+#: work items per launch (the CPU twin gathers [W, 384] rows: 50 MB at
+#: this size)
 CHUNK = 32768
 
 
 def flat_topk(cstore, rows, qid, weights, k: int, num_queries: int):
     """Per-query top-k over work items: `rows` [W] int64 store rows, `qid`
     [W] int32 query of each item, `weights` [Q] f32 BM25 weight per query,
-    all on `cstore`'s device. Returns the packed [2, Q, k] int32 form of
+    all on `cstore`'s device. Kernel K7's store form (its twin on the CPU)
+    gives each row's top-kk, kk = min(k, 128): a query's top-k lies in the
+    union of its rows' top-kk. Returns the packed [2, Q, k] int32 form of
     `probe_scorer.pack_results` (score bits | doc), -inf / 0 past a query's
     hits."""
-    r = cstore[rows]                                          # [W, 384]
-    docs = r[:, :128]
-    tf = r[:, 128:256].float()
-    cachev = r[:, 256:].view(torch.float32)
-    scores = weights[qid.long()][:, None] * (tf / (tf + cachev))
-    scores = torch.where(torch.isnan(cachev), float("-inf"), scores)
-    # per-row top-kk prefilter: a query's top-k lies in the union of its
-    # rows' top-kk; stable, so ties keep the lower lane (lower doc) first
-    # as `jax.lax.top_k` does
-    kk = min(k, docs.shape[1])
-    row_sc, row_i = torch.sort(scores, dim=1, descending=True, stable=True)
-    row_sc, row_i = row_sc[:, :kk].contiguous(), row_i[:, :kk]
-    row_doc = docs.gather(1, row_i)
+    row_sc, row_doc = dense_flat_store(cstore, rows, qid, weights,
+                                       kk=min(k, 128))
     sc, dc = per_query_topk_from_rows(row_sc, row_doc, qid, k, num_queries)
     return pack_results(sc, dc)
 

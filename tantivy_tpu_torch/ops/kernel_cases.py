@@ -1,7 +1,8 @@
 """Synthetic launch chunks for the boolean probe kernels K1 (group probe),
-K3 (windowed probe) and K4 (deep probe), the packed flat scorer K5 and the
-per-segment phrase probe K6, made from a seed with numpy: the shapes the real launches seldom reach and
-the kernels' designs find hard. The tests hold the plain twins against the
+K3 (windowed probe) and K4 (deep probe), the packed flat scorer K5, the
+per-segment phrase probe K6 and the dense flat scorer K7, made from a seed
+with numpy: the shapes the real launches seldom reach and the kernels'
+designs find hard. The tests hold the plain twins against the
 reference kernels on them, and the card checks
 (`tests/test_torch_*_probe.py`, `chip_smoke.py`) hold the CUDA kernels
 against the twins.
@@ -51,6 +52,21 @@ K5 kinds (`packed_case`), packed mirrors built from random deltas:
 * "ties": no freqs and one field-norm id, so every live lane of an item
   ties with the others and lane order alone decides each cut; two queries
   weigh 0.0 and -0.0 (all-zero scores of either sign).
+K7 kinds (`dense_case`), one chunk in both of K7's forms (fused-store rows
+and dense docs/tfs rows with per-query denominator tables), every item's
+row repeated or not, padding items (qid = num_queries) holding real rows:
+* "ties": every tf 1 and one field-norm id, so every live lane of an item
+  ties with the others and lane order alone decides each cut; two queries
+  weigh 0.0 and -0.0;
+* "dead": a row whose docs are all deleted, a row of TERMINATED padding
+  alone (NaN denominators) and rows half deleted;
+* "mid_pad": TERMINATED padding at lanes inside each row, not only after
+  its last doc;
+* "invalid": about 40% of the cache form's rows not valid, holding real
+  docs;
+* "no_alive": no deletes; the cache form gets `alive` None;
+* "sparse": 1 to 8 live docs a row, fewer than kk = 10 or 128, so most
+  slots are -inf lanes with their own docs.
 K6 kinds (`phrase_case`), each query a leader region and partner regions
 whose docs hold planted aligned phrase positions among random ones:
 * "leader_tf16": leader lanes at tf 16 (MAX_P), up to 16 matches a doc;
@@ -85,6 +101,7 @@ GROUP_KINDS = ("ties", "t16", "wide", "oversized")
 BOOL_KINDS = ("every_row", "store_end")
 DEEP_KINDS = ("ladder_edge", "t16", "stage_edges")
 PACKED_KINDS = ("widths", "no_freqs", "ties")
+DENSE_KINDS = ("ties", "dead", "mid_pad", "invalid", "no_alive", "sparse")
 PHRASE_KINDS = ("leader_tf16", "partner_tf256", "window_1024", "store_end",
                 "deleted", "t8", "ties", "stage_edges")
 _WIDTHS = (0, 1, 2, 4, 8, 16, 32)
@@ -531,6 +548,69 @@ def packed_case(kind: str, seed: int = 0) -> dict:
     return dict(kind=kind, mirror=mirror, blocks=blocks, qids=qids,
                 weights=weights, caches=caches.astype(np.float32),
                 num_queries=Q)
+
+
+def dense_case(kind: str, seed: int = 0) -> dict:
+    """One K7 launch chunk of `kind` (see the module note) in both forms:
+    `cstore` [NB, 384] u32 (the store form's rows), `rows` [64] int64 and
+    `qids` [64] i32 (items past the real ones have qid = num_queries and
+    real rows), `weights` [Q + 1] f32, and for the cache form `docs` and
+    `tfs` [64, 128] u32 (the items' rows), `valid` [64] bool, `norm_ids`
+    u8, `alive` (bool, or None for "no_alive") and `caches` [Q + 1, 256]
+    f32; `parts` holds the arrays the store was built from."""
+    from ..query.bm25 import compute_tf_cache
+
+    rng = np.random.default_rng(4000 + 17 * seed + DENSE_KINDS.index(kind))
+    max_doc, nb, Q = 40_000, 40, 6
+    docs = np.full((nb, 128), TERMINATED, np.uint32)
+    tfs = np.ones((nb, 128), np.uint32)
+    for b in range(nb):
+        n = 128 if kind in ("ties", "no_alive") else int(rng.integers(1, 129))
+        if kind == "sparse":
+            n = int(rng.integers(1, 9))
+        docs[b, :n] = _sorted_docs(rng, n, max_doc)
+        if kind != "ties":
+            tfs[b, :n] = rng.integers(1, 4, n)
+    if kind == "mid_pad":
+        hole = rng.random((nb, 128)) < 0.3
+        docs[hole] = TERMINATED
+    if kind == "dead":
+        docs[1] = TERMINATED
+    norm_ids = rng.integers(0, 256, max_doc).astype(np.uint8)
+    if kind == "ties":
+        norm_ids[:] = 0
+    alive = rng.random(max_doc) >= 0.1
+    if kind == "dead":
+        real = docs[docs != TERMINATED].astype(np.int64)
+        alive[docs[0][docs[0] != TERMINATED].astype(np.int64)] = False
+        alive[real[::2]] = False
+    elif kind == "sparse":
+        alive[docs[::2, 0].astype(np.int64)] = False
+    cache = compute_tf_cache(np.float32(rng.uniform(5.0, 60.0)))
+    store_alive = None if kind == "no_alive" else alive
+    cstore = build_cstore_np(docs, tfs, norm_ids, store_alive, cache)
+    items = [(b, int(rng.integers(0, Q))) for b in range(nb)]
+    items += [(int(b), int(rng.integers(0, Q))) for b in rng.choice(nb, 8)]
+    items += [(0, 0), (0, 0), (1, 1), (1, 1), (3, 2)]   # repeated rows
+    rows = rng.integers(0, nb, CHUNK_W).astype(np.int64)  # padding: real rows
+    qids = np.full(CHUNK_W, Q, np.int32)
+    rows[:len(items)], qids[:len(items)] = zip(*items)
+    valid = np.ones(CHUNK_W, bool)
+    if kind == "invalid":
+        valid = rng.random(CHUNK_W) >= 0.4
+    weights = rng.uniform(0.5, 3.0, Q + 1).astype(np.float32)
+    if kind == "ties":
+        weights[:] = weights[0]
+        weights[:2] = (0.0, -0.0)
+    caches = np.stack([compute_tf_cache(np.float32(a))
+                       for a in rng.uniform(5.0, 60.0, Q + 1)])
+    return dict(kind=kind, num_queries=Q, cstore=cstore, rows=rows,
+                qids=qids, weights=weights, docs=docs[rows], tfs=tfs[rows],
+                valid=valid, norm_ids=norm_ids,
+                alive=None if kind == "no_alive" else alive,
+                caches=caches.astype(np.float32),
+                parts=dict(docs=docs, tfs=tfs, norm_ids=norm_ids,
+                           alive=store_alive, cache=cache))
 
 
 #: per K6 kind: terms, queries, the leader's index, probe rows kw and

@@ -18,7 +18,8 @@ reached only through `search_boolean_batch`: per (segment, field, clause
 bucket) work lists -> `probe_scorer.dispatch_probe` -> the windowed-probe
 kernel (`bool_probe.bool_probe_topk`) or the deep per-lane probe, each
 with a per-segment merge tail. A fourth, `search_term_batch`, is the
-reference's flat term scorer (`ops/flat_scorer.py`, plain torch). A
+reference's flat term scorer (`ops/flat_scorer.py`): kernel K7's store
+form (`ops/dense_flat.py`) and a per-query merge tail. A
 fifth is the reference's per-segment Block-WAND phrase path
 (`_search_phrase_seg`), which `search_phrase_batch` takes off the card:
 per (segment, field, term count) leader block work lists ->
@@ -62,7 +63,7 @@ NEG_INF = np.float32(-np.inf)
 #: the kernels each mode runs (`prewarm` loads these)
 _MODE_KERNELS = {
     "dense": ("group_probe", "phrase_probe", "bool_probe", "deep_probe",
-              "seg_phrase"),
+              "seg_phrase", "dense_flat"),
     "packed": ("packed_flat",),
 }
 

@@ -2,7 +2,8 @@
 `tantivy_tpu`. Importing every module of `tantivy_tpu_torch`, and running
 its phrase path, its per-segment boolean path, the rest of its executor
 (term batches, pipelined and sharded batches, count, agg, the warmer), its
-per-segment phrase path and its packed mode on the CPU, must leave no `jax` and no `tantivy_tpu` /
+per-segment phrase path, its packed mode and its entry points (`entry`,
+`dryrun_multichip`) on the CPU, must leave no `jax` and no `tantivy_tpu` /
 `tantivy_tpu.*` module in `sys.modules`; those run in a fresh interpreter,
 because this test process has already imported both (tests/conftest.py). A static check parses every `.py` file of the
 port, and `chip_smoke.py`, and fails on any import of `tantivy_tpu`."""
@@ -200,6 +201,23 @@ assert ex.search_batch(queries, 5) == want
 """ + LOADED
 
 
+#: the entry points (K7's twin under the term scorer) and its sharded dry
+#: run on the CPU
+ENTRY_RUN = """
+import contextlib, io, sys
+import torch
+from tantivy_tpu_torch import entry
+from tantivy_tpu_torch.ops import dense_flat
+
+fn, args = entry.entry(device="cpu")
+scores, docs = fn(*args)
+assert scores.shape == (8, 10) and torch.isfinite(scores[:, 0]).all()
+with contextlib.redirect_stdout(io.StringIO()):
+    entry.dryrun_multichip(2, device="cpu")
+assert dense_flat.launches == 0
+""" + LOADED
+
+
 def _run(program, *args):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
@@ -212,6 +230,8 @@ def _run(program, *args):
 
 def test_port_imports_no_jax():
     assert len(MODULES) > 50, MODULES
+    for name in ("entry", "ops.term_scorer", "ops.dense_flat"):
+        assert f"tantivy_tpu_torch.{name}" in MODULES, name
     _run(PROGRAM, *MODULES)
 
 
@@ -233,6 +253,10 @@ def test_executor_surface_runs_without_jax():
 
 def test_packed_mode_runs_without_jax():
     _run(PACKED_RUN)
+
+
+def test_entry_runs_without_jax():
+    _run(ENTRY_RUN)
 
 
 def _imports_reference(node) -> bool:
