@@ -52,15 +52,18 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    the results must equal the closed-loop results list for list; prints
    both QPS figures and the p50 of `batch_spans`;
 6b. term batches: `executor.search_term_batch` (the flat scorer: the
-   dense flat-scorer kernel K7's store form over the fused store, then the
-   merge tail) on the term log, one warm and TIMED_BATCHES timed batches,
-   with the counters reset just before the timed batches and read just
-   after (K7's launches must equal the `kind="flat"` chunks the launch log
-   recorded for them); sampled hits must equal the host engine's; every K7
-   chunk of one timed batch is replayed through the kernel and its twin
-   (bitwise); prints QPS, p50, the flat scorer's device ms over one
-   batch's calls (K7 and the merge tail), K7's own device ms
-   (`_device_ms`) and the twin's ms (CUDA events);
+   dense flat-scorer kernel K7's store form over the fused store, each
+   query's top-k on the card: a group and a select kernel a call) on the
+   term log, one warm and TIMED_BATCHES timed batches, with the counters
+   reset just before the timed batches and read just after (K7's launches
+   must equal the `kind="flat"` chunks the launch log recorded for them
+   times its 2 kernels, and no chunk may take the row stage of k > 128);
+   sampled hits must equal the host engine's; every K7 chunk of one timed
+   batch is replayed through the kernel and its twin (bitwise); prints
+   QPS, p50, the flat scorer's device ms over one batch's calls (K7
+   alone) beside the route of k > 128 on the same calls (K7's row stage
+   and the torch merge tail), K7's replayed device ms (`_device_ms`) and
+   the twin's ms (CUDA events);
 6c. packed term batches: a packed-mode executor (`BatchExecutor(searcher,
    device="cuda", mode="packed")`: the postings stay bit-packed on the card
    and the packed flat-scorer kernel K5 decodes them per query) runs the
@@ -83,7 +86,7 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    requests one `AggregationCollector` each; prints the ms of each;
 6f. entry points (`tantivy_tpu_torch.entry`), with the counters reset just
    before and read just after: `entry()`'s forward (the term scorer's
-   `_topk_kernel`: K7's cache form and a per-query merge) on the card must
+   `_topk_kernel`: K7's cache form, each query's top-k) on the card must
    equal, bitwise, the same forward over the same tensors on the CPU (the
    twin, `entry(device="cpu")`), and must launch K7; then
    `dryrun_multichip(4)` (term, boolean and phrase batches over four
@@ -112,7 +115,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    at kk = 1, 10 and 128 through K6 and its twin, and each dense hard case
    (every lane tied, dead and NaN rows, TERMINATED padding mid-row,
    invalid rows holding real docs, `alive` None, fewer live lanes than
-   kk) at kk = 1, 10 and 128 through both forms of K7 and its twin; then
+   k) at k = 1, 10 and 128 through both forms of K7 and its twin, and at
+   k = 200 through K7's row stage and the torch merge; then
    every deep chunk of
    the probe path through K4 and its twin and every K6 chunk of one timed
    batch of each per-segment phrase suite through K6 and its twin,
@@ -189,9 +193,9 @@ NO_LIBRARY = ("no single PyTorch call computes a sorted-set probe, BM25 "
               "scoring and a per-group top-kk over these stores, nor a "
               "position intersection with them, nor a bit-unpack, "
               "strict-delta prefix sum, BM25 and per-row top-kk over packed "
-              "postings, nor BM25 with a per-row top-kk of all 128 lanes in "
-              "(score desc, lane asc) order over fused-store or dense rows "
-              "(torch.topk does not order ties)")
+              "postings, nor BM25 with each query's top-k over fused-store "
+              "or dense rows grouped on the card, in (score desc, doc or flat "
+              "index asc) order (torch.topk does not order ties)")
 #: batches in flight in the pipelined pass
 PIPELINE = 3
 #: the suites the sharded pass runs, and its devices (one card: two shards
@@ -436,43 +440,61 @@ def build_kernel(name: str, src_dir: str, tag: str):
 
 class kernel_lib:
     """Within the block, kernel `name`'s wrapper launches through `lib`
-    (a baseline build) instead of the current build."""
+    (a baseline build) instead of the current build. An earlier build of
+    the dense flat scorer may have its row stage alone, which the
+    wrapper's strict binding refuses: within the block the wrapper gets
+    `lib` with the entry points it has bound."""
 
     def __init__(self, name, lib):
         self.name, self.lib = name, lib
 
     def __enter__(self):
-        from tantivy_tpu_torch.ops import _build
+        from tantivy_tpu_torch.ops import _build, dense_flat
 
         self.saved = _build.load(self.name)
         _build._libs[self.name] = self.lib
+        if self.name == "dense_flat":
+            for fn_name, (args, res) in dense_flat.signatures().items():
+                fn = getattr(self.lib, fn_name, None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = args, res
+            self.saved_bind = dense_flat._lib
+            dense_flat._lib = lambda: self.lib
 
     def __exit__(self, *exc):
-        from tantivy_tpu_torch.ops import _build
+        from tantivy_tpu_torch.ops import _build, dense_flat
 
         _build._libs[self.name] = self.saved
+        if self.name == "dense_flat":
+            dense_flat._lib = self.saved_bind
 
 
 def occupancy(lib, name: str) -> dict:
     """Threads, shared memory per CTA and CTAs resident per SM of kernel
     `name` in `lib` (the phrase kernel's at 1 and 3 partners, the dense
-    flat scorer's in each form)."""
+    flat scorer's group kernel, select kernel in each form at k = K and
+    row stage in each form; an earlier build's row stage alone)."""
     import ctypes
 
-    def query(*lead):
+    def query(fn_name, *lead):
         vals = [ctypes.c_int(0) for _ in range(3)]
-        fn = getattr(lib, f"{name}_occupancy")
-        err = fn(*lead, *(ctypes.byref(v) for v in vals))
+        err = getattr(lib, fn_name)(*lead, *(ctypes.byref(v) for v in vals))
         if err != 0:
-            raise RuntimeError(f"{name}_occupancy: CUDA error {err}")
+            raise RuntimeError(f"{fn_name}: CUDA error {err}")
         return dict(zip(("threads", "smem_bytes", "ctas_per_sm"),
                         (v.value for v in vals)))
 
+    own = f"{name}_occupancy"
     if name == "phrase_probe":
-        return {f"S{s}": query(s) for s in (1, 3)}
+        return {f"S{s}": query(own, s) for s in (1, 3)}
     if name == "dense_flat":
-        return {"store": query(0), "cache": query(1)}
-    return query()
+        rows = {"rows_store": query(own, 0), "rows_cache": query(own, 1)}
+        if not hasattr(lib, "dense_flat_topk_occupancy"):
+            return rows
+        topk = "dense_flat_topk_occupancy"
+        return {"group": query(topk, 2, K), "select_store": query(topk, 0, K),
+                "select_cache": query(topk, 1, K), **rows}
+    return query(own)
 
 
 def per_batch_launches(before: dict) -> dict:
@@ -657,29 +679,43 @@ def run_term_batches(executor, searcher, logs, seed: int,
     """`search_term_batch` on the term log: one warm batch, then
     TIMED_BATCHES timed ones with every launch counter reset (`zero_counts`)
     just before and read just after; K7's launches must equal the flat
-    chunks the launch log recorded for the timed batches, and sampled hits
+    chunks the launch log recorded for them times its kernels a call (the
+    group and select kernels; k = K takes no row stage), and sampled hits
     must equal the host engine's. The flat scorer's calls of the first
-    timed batch are replayed for their device ms (`_device_ms`: K7 and the
-    merge tail), and their K7 chunks through the kernel and its twin
+    timed batch are replayed for their device ms (`_device_ms`: K7 alone),
+    beside the route of k > 128 on the same chunks (K7's row stage and the
+    torch merge tail), and their K7 chunks through the kernel and its twin
     (`dense_flat_vs_twin`)."""
     import tantivy_tpu_torch as tt
+    from tantivy_tpu_torch.ops import dense_flat
     from tantivy_tpu_torch.ops.flat_scorer import flat_topk
 
     terms = [q.term for q in logs["term"]]
     executor.launch_log = []
     executor.search_term_batch(terms[:BATCH], K)
     n_warm = len(executor.launch_log)
+    stats0 = dict(executor.plan_stats)
     zero_counts()
     qps, p50_ms, pairs, batch_log = timed_batches(
         executor.search_term_batch, terms, executor.launch_log)
     counts = launch_counts()
+    by_kernel = dict(dense_flat.launches_by_kernel)
     chunks = sum(rec["kind"] == "flat"
                  for rec in executor.launch_log[n_warm:])
     executor.launch_log = None
-    if counts["dense_flat"] != chunks or not chunks:
+    want = chunks * dense_flat.KERNELS_PER_CALL
+    if counts["dense_flat"] != want or not chunks:
         raise AssertionError(f"the timed term batches launched dense_flat "
-                             f"{counts['dense_flat']} times for {chunks} "
-                             "flat chunks")
+                             f"{counts['dense_flat']} times ({by_kernel}) "
+                             f"for {chunks} flat chunks of "
+                             f"{dense_flat.KERNELS_PER_CALL} kernels")
+    if by_kernel != {"group": chunks, "select": chunks}:
+        raise AssertionError(f"the timed term batches launched {by_kernel} "
+                             f"K7 kernels for {chunks} flat chunks")
+    rows_k = (executor.plan_stats.get("flat_rows_k", 0)
+              - stats0.get("flat_rows_k", 0))
+    if rows_k:
+        raise AssertionError(f"k={K} took the row stage {rows_k} times")
     others = {n: c for n, c in counts.items() if c and n != "dense_flat"}
     if others:
         raise AssertionError(f"the term batches launched {others}")
@@ -695,10 +731,12 @@ def run_term_batches(executor, searcher, logs, seed: int,
     if not calls:
         raise AssertionError("the term batch made no flat scorer call")
     flat_ms = _device_ms([lambda a=a: flat_topk(*a) for a in calls])
+    rows_ms = _device_ms([dense_rows_call(a) for a in calls])
     return {"qps": qps, "p50_ms": p50_ms, "flat_calls": len(calls),
             "flat_items": sum(int(a[1].shape[0]) for a in calls),
-            "flat_ms": flat_ms, "sampled": EXACT_SAMPLE, "pairs": pairs,
-            "counts": counts, "batch_log": batch_log,
+            "flat_ms": flat_ms, "rows_route_ms": rows_ms,
+            "sampled": EXACT_SAMPLE, "pairs": pairs,
+            "counts": counts, "by_kernel": by_kernel, "batch_log": batch_log,
             "launches_per_batch": counts["dense_flat"] / TIMED_BATCHES,
             **dense_flat_vs_twin(batch_log)}
 
@@ -768,7 +806,7 @@ def packed_flat_vs_twin(batch_log) -> dict:
         kern, twin = packed_flat_calls(args)
         err, _ = _compare(f"packed_flat chunk {i}", kern, twin)
         max_err = max(max_err, err)
-        chunks.append((int(args[1].shape[0]), _device_ms([kern]),
+        chunks.append((int(args[1].shape[0]), _single_ms([kern], 3),
                        _time_ms(twin, 3), packed_flat_bytes(args), kern))
     big = max(chunks, key=lambda c: c[0])
     return {"chunks": len(calls), "items": sum(c[0] for c in chunks),
@@ -779,25 +817,31 @@ def packed_flat_vs_twin(batch_log) -> dict:
 
 
 def dense_flat_vs_twin(batch_log) -> dict:
-    """Every K7 chunk of one dense term batch (its flat calls' row stage)
-    through the kernel and its twin: bitwise equal, the kernel timed by
-    `_device_ms` and the twin between CUDA events, with the bytes it must
-    move. Returns the sums over the batch and the largest chunk's (W,
-    kernel ms, twin ms, bytes) and kernel call."""
+    """Every K7 chunk of one dense term batch (its flat calls) through the
+    kernel and its twin: bitwise equal, the kernel timed by `_device_ms`
+    and the twin between CUDA events, with the bytes it must move. Returns
+    the sums over the batch and the largest chunk's (W, kernel ms, twin
+    ms, bytes, the route of k > 128's ms) and kernel call and that route's
+    call."""
     max_err, chunks = 0.0, []
     calls = [rec["args"] for rec in batch_log if rec["kind"] == "flat"]
     for i, args in enumerate(calls):
         kern, twin = dense_flat_calls(args)
         err, _ = _compare(f"dense_flat chunk {i}", kern, twin)
         max_err = max(max_err, err)
-        chunks.append((int(args[1].shape[0]), _device_ms([kern]),
-                       _time_ms(twin, 3), dense_flat_bytes(args), kern))
-    big = max(chunks, key=lambda c: c[0])
+        chunks.append((int(args[1].shape[0]), args, kern))
+    W, args, kern = max(chunks, key=lambda c: c[0])
+    twin = dense_flat_calls(args)[1]
+    rows = dense_rows_call(args)
+    big = (W, _single_ms([kern], 20), _time_ms(twin, 3),
+           dense_flat_bytes(args), _single_ms([rows], 20))
     return {"k7_chunks": len(calls), "k7_ms": _device_ms(
-                [c[4] for c in chunks]),
-            "k7_twin_ms": sum(c[2] for c in chunks),
-            "k7_bytes": sum(c[3] for c in chunks), "max_abs_err": max_err,
-            "big_chunk": big[:4], "big_call": big[4]}
+                [c[2] for c in chunks]),
+            "k7_twin_ms": sum(_time_ms(dense_flat_calls(c[1])[1], 3)
+                              for c in chunks),
+            "k7_bytes": sum(dense_flat_bytes(c[1]) for c in chunks),
+            "max_abs_err": max_err, "big_chunk": big, "big_call": kern,
+            "big_rows_call": rows}
 
 
 def run_sharded(searcher, logs, answered, devices=SHARD_DEVICES) -> dict:
@@ -861,11 +905,11 @@ def run_entry(zero_counts) -> dict:
                   torch.arange(Q * B, dtype=torch.int32,
                                device=docs.device) // B,
                   norm_ids, alive, weights, caches)
-    kern, _ = dense_cache_calls(cache_args, 10)
+    kern, _ = dense_cache_calls(cache_args, 10, Q)
     return {"counts": counts, "dryrun": out,
             "finite": int(torch.isfinite(want[0]).sum()),
-            "k7_ms": _device_ms([kern], 20),
-            "bound_ms": bound_ms(dense_cache_bytes(cache_args, 10))}
+            "k7_ms": _single_ms([kern], 20),
+            "bound_ms": bound_ms(dense_cache_bytes(cache_args, 10, Q))}
 
 
 def build_side_index(stream, n_docs: int, seed: int):
@@ -1100,38 +1144,59 @@ def packed_flat_calls(args):
     return (lambda: packed_flat(*a, **kw), lambda: packed_flat_ref(*a, **kw))
 
 
+def _unpacked(packed):
+    """A packed [2, Q, k] result as (scores, docs) for `_compare`."""
+    import torch
+
+    return packed[0].view(torch.float32), packed[1]
+
+
 def dense_flat_calls(args):
     """(kernel, twin) no-argument calls of kernel K7's store form on one
     logged flat chunk (`dispatch_flat`'s args: cstore, rows, qids,
-    weights, k, num_queries)."""
+    weights, k, num_queries): the per-query kernels for k <= 128, and
+    `store_topk_ref` (the row stage's twin and the merge tail)."""
     from tantivy_tpu_torch.ops.dense_flat import (
-        dense_flat_ref,
         dense_flat_store,
+        store_topk_ref,
     )
 
-    cstore, rows, qids, weights, k = args[:5]
+    cstore, rows, qids, weights, k, num_queries = args
     a = (cstore, rows, qids, weights)
-    kk = min(k, 128)
-    return (lambda: dense_flat_store(*a, kk=kk),
-            lambda: dense_flat_ref("store", *a, kk=kk))
+    return (lambda: _unpacked(dense_flat_store(*a, k=k,
+                                               num_queries=num_queries)),
+            lambda: _unpacked(store_topk_ref(*a, k, num_queries)))
 
 
-def dense_cache_calls(args, kk: int):
+def dense_rows_call(args):
+    """K7's row stage and the torch merge tail on one logged flat chunk
+    (`flat_scorer.flat_topk_rows`): the route of k > 128, and the whole of
+    K7 before it computed each query's top-k."""
+    from tantivy_tpu_torch.ops.flat_scorer import flat_topk_rows
+
+    return lambda: _unpacked(flat_topk_rows(*args))
+
+
+def dense_cache_calls(args, k: int, num_queries: int):
     """(kernel, twin) no-argument calls of kernel K7's cache form on
-    `dense_flat_cache`'s args; each returns (scores, docs and lanes
-    stacked) for `_compare`."""
-    import torch
-
+    `dense_flat_cache`'s args, at k (k > 128: the row stage and
+    `cache_merge`, as `_topk_kernel` routes it); each returns (scores,
+    docs)."""
     from tantivy_tpu_torch.ops.dense_flat import (
+        MAX_K,
+        cache_merge,
+        cache_topk_ref,
         dense_flat_cache,
-        dense_flat_ref,
+        dense_flat_rows_cache,
     )
 
-    def pair(out):
-        return out[0], torch.stack([out[1], out[2].int()])
-
-    return (lambda: pair(dense_flat_cache(*args, kk=kk)),
-            lambda: pair(dense_flat_ref("cache", *args, kk=kk)))
+    if k <= MAX_K:
+        kern = lambda: dense_flat_cache(*args, k=k,  # noqa: E731
+                                        num_queries=num_queries)
+    else:
+        kern = lambda: cache_merge(  # noqa: E731
+            *dense_flat_rows_cache(*args, kk=MAX_K), args[3], k, num_queries)
+    return kern, lambda: cache_topk_ref(*args, k, num_queries)
 
 
 def bool_calls(rec, rows):
@@ -1555,39 +1620,54 @@ def packed_flat_bytes(args) -> int:
 
 
 def dense_flat_bytes(args) -> int:
-    """Kernel K7's store form on one flat chunk: each distinct cstore row
-    once (1,536 bytes), the items (an 8-byte row and a 4-byte qid each),
-    each distinct query's weight, and the [W, kk] scores and docs. The term
-    log repeats frequent terms, so rows repeat across items."""
+    """Kernel K7's store form on one flat chunk, the bytes the function
+    needs: each distinct cstore row once (1,536 bytes), the items (an
+    8-byte row and a 4-byte qid each), each distinct query's weight, and
+    the output: for k <= 128 each query's [k] scores and docs, above it the
+    row stage's [W, 128] scores and docs. The term log repeats frequent
+    terms, so rows repeat across items. What K7 itself adds to group the
+    items by query (a second read of the qids, the item order, the offsets)
+    is not counted."""
     import torch
 
-    cstore, rows, qids, weights, k = args[:5]
+    from tantivy_tpu_torch.ops.dense_flat import MAX_K
+
+    cstore, rows, qids, weights, k, num_queries = args
     W = rows.shape[0]
     n_rows = torch.unique(rows).numel()
     n_q = torch.unique(qids).numel()
+    out = num_queries * k * 8 if k <= MAX_K else W * MAX_K * 8
     return (n_rows * cstore.shape[1] * 4 + 12 * W
-            + n_q * weights.element_size() + W * min(k, 128) * 8)
+            + n_q * weights.element_size() + out)
 
 
-def dense_cache_bytes(args, kk: int) -> int:
-    """Kernel K7's cache form: each row's docs and tfs (1,024 bytes), its
-    valid byte and qid, the alive and norm-id bytes of its distinct real
-    docs, each distinct query's weight and denominator table, and the
-    [W, kk] scores, docs and lanes."""
+def dense_cache_bytes(args, k: int, num_queries: int) -> int:
+    """Kernel K7's cache form, the bytes the function needs: each row's
+    docs and tfs (1,024 bytes) and valid byte, the alive and norm-id bytes
+    of its distinct real docs, each distinct query's weight and denominator
+    table, and the output: each query's [k] scores and docs for k <= 128,
+    the row stage's [W, 128] scores, docs and lanes above. A row's query is
+    its position (the reference's `_topk_kernel` takes no qids), so the
+    qids the kernel is handed are not counted."""
     import torch
+
+    from tantivy_tpu_torch.ops.dense_flat import MAX_K
 
     docs, tfs, valid, qids, norm_ids, alive, weights, caches = args
     W = docs.shape[0]
     real = docs[docs != 2**31 - 1]
     n_docs = torch.unique(real).numel()
     n_q = torch.unique(qids).numel()
-    return (W * (1024 + 1 + 4) + n_docs * (1 + (alive is not None))
-            + n_q * (4 + caches.shape[1] * 4) + W * kk * 9)
+    out = num_queries * k * 8 if k <= MAX_K else W * MAX_K * 9
+    return (W * (1024 + 1) + n_docs * (1 + (alive is not None))
+            + n_q * (4 + caches.shape[1] * 4) + out)
 
 
 def _rounded(v):
     if isinstance(v, dict):
         return {k: _rounded(x) for k, x in v.items()}
+    if isinstance(v, (bool, list)):
+        return v
     return round(v, 6)
 
 
@@ -1596,34 +1676,41 @@ def bound_ms(n_bytes: int) -> float:
 
 
 def chunk_work(rec):
-    """(kernel name, kernel call, bytes) for each chunk of one launch
-    record."""
+    """(kernel name, kernel call, bytes, the call an earlier build of the
+    kernel runs) for each chunk of one launch record."""
     if rec["kind"] == "bool":
         for rows, _, _ in rec["chunks"]:
-            yield ("group_probe", group_calls(rec, rows)[0],
-                   group_probe_bytes(rec, rows))
+            call = group_calls(rec, rows)[0]
+            yield ("group_probe", call, group_probe_bytes(rec, rows), call)
     elif rec["kind"] == "phrase":
         for rr, rows, _, _ in rec["chunks"]:
-            yield ("phrase_probe", phrase_calls(rec, rr, rows)[0],
-                   phrase_probe_bytes(rec, rr, rows))
+            call = phrase_calls(rec, rr, rows)[0]
+            yield ("phrase_probe", call, phrase_probe_bytes(rec, rr, rows),
+                   call)
     elif rec["kind"] == "packed_flat":
-        yield ("packed_flat", packed_flat_calls(rec["args"])[0],
-               packed_flat_bytes(rec["args"]))
+        call = packed_flat_calls(rec["args"])[0]
+        yield ("packed_flat", call, packed_flat_bytes(rec["args"]), call)
     elif rec["kind"] == "flat":
+        # an earlier K7 is its row stage: the route of k > 128 runs it
         yield ("dense_flat", dense_flat_calls(rec["args"])[0],
-               dense_flat_bytes(rec["args"]))
+               dense_flat_bytes(rec["args"]), dense_rows_call(rec["args"]))
     elif rec["kind"] == "deep":
-        yield ("deep_probe", deep_calls(rec)[0],
-               deep_probe_bytes(rec, rec["rows"]))
+        call = deep_calls(rec)[0]
+        yield ("deep_probe", call, deep_probe_bytes(rec, rec["rows"]), call)
     elif rec["kind"] == "seg_phrase":
-        yield ("seg_phrase", seg_phrase_calls(rec)[0],
-               seg_phrase_bytes(rec, rec["rows"]))
+        call = seg_phrase_calls(rec)[0]
+        yield ("seg_phrase", call, seg_phrase_bytes(rec, rec["rows"]), call)
     else:
-        yield ("bool_probe", bool_calls(rec, rec["rows"])[0],
-               bool_probe_bytes(rec, rec["rows"]))
+        call = bool_calls(rec, rec["rows"])[0]
+        yield ("bool_probe", call, bool_probe_bytes(rec, rec["rows"]), call)
 
 
-def _device_ms(calls, reps: int = 3, attempts: int = 3) -> float:
+#: spin kernels launched before and after the calls of each profiler
+#: session of `_device_ms`, not counted in its time
+PAD_KERNELS = 4
+
+
+def _device_ms(calls, reps: int = 3, attempts: int = 4):
     """Device time of one pass over `calls` (no-argument calls, each of
     which launches at least one kernel), from torch.profiler: the summed
     durations of the CUDA kernels and copies they run, averaged over
@@ -1633,39 +1720,103 @@ def _device_ms(calls, reps: int = 3, attempts: int = 3) -> float:
     microseconds cannot hide. The profiler has been seen to deliver no
     device event for a whole pass, and fewer device events than the calls
     launched kernels (on an H100, a 12-chunk term batch once read 0.0015
-    ms where its other passes read about 0.19); such a pass is made
-    again, up to `attempts` passes in all. When no pass is complete, the largest time
-    is returned and the shortfall printed."""
+    ms where its other passes read about 0.19, single-chunk sessions
+    missed 2 events of 20, and a pass of K7's row stage and torch merge
+    tail read 0.97 ms where others read 3.07). So each session starts and
+    ends with PAD_KERNELS spin kernels (`torch.cuda._sleep`, left out of
+    the time); a session counts only if it holds a device event for every
+    call and for every launch the port's counters saw, and only once a
+    second session of up to `attempts` has recorded the same number of
+    device events (the torch kernels of a call are not counted
+    elsewhere): the reading is the mean of those sessions. Otherwise the
+    reading is incomplete: it returns None (and prints the sessions'
+    counts), never a short pass's time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def pad():
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(100)
+
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    best, short = 0.0, None
+    seen = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad()
+            n0 = sum(launch_counts().values())
             for _ in range(reps):
                 for fn in calls:
                     fn()
+            n1 = sum(launch_counts().values())
+            pad()
             torch.cuda.synchronize()
         evs = [ev for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA]
-        total = sum(ev.self_device_time_total for ev in evs)
-        n_events = sum(ev.count for ev in evs)
-        if total and n_events >= reps * len(calls):
-            return total / reps / 1e3
-        best = max(best, total)
-        short = (n_events, reps * len(calls))
-    if not best:
-        raise AssertionError(f"torch.profiler recorded no device time in "
-                             f"{attempts} passes")
-    print(f"_device_ms: torch.profiler recorded {short[0]} device events "
-          f"for {short[1]} calls in each of {attempts} passes; the largest "
-          "pass is reported")
-    return best / reps / 1e3
+        work = [ev for ev in evs if "spin_kernel" not in ev.key]
+        # an unnamed pad would count as work: then it must be there too
+        want = max(reps * len(calls), n1 - n0) + (
+            2 * PAD_KERNELS if len(work) == len(evs) else 0)
+        total = sum(ev.self_device_time_total for ev in work)
+        n_events = sum(ev.count for ev in work)
+        if total and n_events >= want:
+            agree = [t for n, t in seen if n == n_events]
+            if agree and n_events >= max(n for n, _ in seen):
+                return (sum(agree) + total) / (len(agree) + 1) / reps / 1e3
+        seen.append((n_events, total))
+    print(f"_device_ms: incomplete: torch.profiler recorded "
+          f"{[n for n, _ in seen]} device events in {attempts} sessions "
+          f"of {want} or more launches")
+    return None
+
+
+class Reading(float):
+    """A time in ms with how it was taken, `source`: "profiler"
+    (torch.profiler's device time) or "cuda_events" (CUDA events around
+    the calls, which also hold the wrappers' host time)."""
+
+    def __new__(cls, ms: float, source: str):
+        self = super().__new__(cls, ms)
+        self.source = source
+        return self
+
+
+def _single_ms(calls, reps: int = 20) -> Reading:
+    """`_device_ms` of one chunk's calls; when the profiler's reading is
+    incomplete, the time between CUDA events around `reps` passes, its
+    source recorded as "cuda_events" (`_reading_text`, `_sources`)."""
+    ms = _device_ms(calls, reps)
+    if ms is not None:
+        return Reading(ms, "profiler")
+    return Reading(sum(_time_ms(fn, reps) for fn in calls), "cuda_events")
+
+
+def _reading_text(ms: Reading) -> str:
+    if ms.source == "profiler":
+        return f"{ms:.4f} ms device time"
+    return f"{ms:.4f} ms between CUDA events (host time included)"
+
+
+def _sources(stats: dict) -> dict:
+    """How each `Reading` of a kernel's record (and of its dicts of
+    readings) was taken."""
+    out = {}
+    for key, v in stats.items():
+        if isinstance(v, Reading):
+            out[key] = v.source
+        elif isinstance(v, dict):
+            sub = {tag: x.source for tag, x in v.items()
+                   if isinstance(x, Reading)}
+            if sub:
+                out[key] = sub
+    return out
+
+
+def _ms_text(ms) -> str:
+    return "incomplete" if ms is None else f"{ms:.4f} ms"
 
 
 def _same(a, b) -> bool:
@@ -1692,17 +1843,21 @@ def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
     (those bytes at the card's memory rate) and the share of the bound the
     device ms reach, beside the launches per timed batch and the kernel's
     occupancy (`occ`, from `occupancy()`). `baselines` maps a name to
-    {kernel: library}: the chunks also run through those, timed between
-    two passes of the current kernel (whose ms is the mean of both), and
-    the chunks whose output differs from the current kernel's are
-    counted."""
+    {kernel: library}: the chunks also run through those (K7's through its
+    row stage and the torch merge, the calls an earlier build has), timed
+    between two passes of the current kernel (whose ms is the mean of
+    both), and the chunks whose output differs from the current kernel's
+    are counted. An entry whose profiler reading was incomplete says so
+    and gives no ms."""
     out = {}
     for suite, tm in timings.items():
         work = {}
         for rec in tm["batch_log"]:
-            for name, call, n_bytes in chunk_work(rec):
-                w = work.setdefault(name, {"calls": [], "bytes": 0})
+            for name, call, n_bytes, base_call in chunk_work(rec):
+                w = work.setdefault(name, {"calls": [], "base": [],
+                                           "bytes": 0})
                 w["calls"].append(call)
+                w["base"].append(base_call)
                 w["bytes"] += n_bytes
         for name, w in work.items():
             calls, n_bytes = w["calls"], w["bytes"]
@@ -1713,40 +1868,52 @@ def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
                 if libs.get(name) is None:
                     continue
                 with kernel_lib(name, libs[name]):
-                    base_ms[tag] = _device_ms(calls)
+                    base_ms[tag] = _device_ms(w["base"])
                     differs[tag] = sum(not _same(call(), want)
-                                       for call, want in zip(calls, wants))
-            ms = (first + _device_ms(calls)) / 2 if base_ms else first
+                                       for call, want in zip(w["base"],
+                                                             wants))
+            ms = first
+            if base_ms:
+                second = _device_ms(calls)
+                ms = None if None in (first, second) else (first + second) / 2
             b = bound_ms(n_bytes)
-            out.setdefault(name, {})[suite] = {
+            rec = {
                 "launches_per_batch": tm["launches_per_batch"].get(name, 0),
-                "chunks": len(calls), "ms": ms,
-                "bytes": n_bytes, "bound_ms": b, "share": b / ms,
-                **({"baseline_ms": base_ms, "baseline_differs": differs}
-                   if base_ms else {}),
+                "chunks": len(calls), "bytes": n_bytes, "bound_ms": b,
+                **({"ms": ms, "share": b / ms} if ms is not None
+                   else {"incomplete": True}),
+                **({"baseline_ms": {tag: v for tag, v in base_ms.items()
+                                    if v is not None},
+                    "baseline_incomplete": [tag for tag, v in base_ms.items()
+                                            if v is None],
+                    "baseline_differs": differs} if base_ms else {}),
             }
-            base = "".join(f"; {tag} {bms:.4f} ms ({differs[tag]} chunks "
+            out.setdefault(name, {})[suite] = rec
+            base = "".join(f"; {tag} {_ms_text(bms)} ({differs[tag]} chunks "
                            "differ)" for tag, bms in base_ms.items())
+            share = (f"share of bound {b / ms:.4f}" if ms is not None
+                     else "share of bound incomplete")
             print(f"per batch {name} {suite}: "
                   f"{tm['launches_per_batch'].get(name, 0):.1f} launches per "
                   f"timed batch, {len(calls)} chunks replayed: kernel "
-                  f"{ms:.4f} ms device time, {n_bytes} bytes, bound "
-                  f"{b:.4f} ms, "
-                  f"share of bound {b / ms:.4f} "
+                  f"{_ms_text(ms)} device time, {n_bytes} bytes, bound "
+                  f"{b:.4f} ms, {share} "
                   f"({occupancy_text(occ[name])}){base}")
     return out
 
 
 def baseline_synthetic(name: str, kern, baselines: dict,
-                       what: str = "synthetic") -> dict:
+                       what: str = "synthetic", base_kern=None) -> dict:
     """ms of the call `kern` (the synthetic chunk's, or `what`) through
-    each baseline build of kernel `name` that exists."""
+    each baseline build of kernel `name` that exists (`base_kern` in its
+    place where an earlier build takes other calls)."""
     out = {}
     for tag, libs in baselines.items():
         if libs.get(name) is not None:
             with kernel_lib(name, libs[name]):
-                out[tag] = _device_ms([kern], 20)
-            print(f"baseline {tag} {name} {what}: {out[tag]:.4f} ms")
+                out[tag] = _single_ms([base_kern or kern], 20)
+            print(f"baseline {tag} {name} {what}: "
+                  f"{_reading_text(out[tag])}")
     return out
 
 
@@ -1837,14 +2004,18 @@ def hard_cases_vs_twin() -> None:
             else case[key])
             for key in ("docs", "tfs", "valid", "qids", "norm_ids", "alive",
                         "weights", "caches"))
-        for kk in (1, 10, 128):
-            name = f"dense_flat hard case {kind} kk={kk}"
-            _, n_store = _compare(f"{name} store form", *dense_flat_calls(
-                (*store, kk)))
+        Q = case["num_queries"]
+        # k = 200 takes the row stage and the torch merge
+        for k in (1, 10, 128, 200):
+            name = f"dense_flat hard case {kind} k={k}"
+            head = _compare(f"{name} store form", *dense_flat_calls(
+                (*store, k, Q))) if k <= 128 else _compare(
+                f"{name} store form", dense_rows_call((*store, k, Q)),
+                dense_flat_calls((*store, k, Q))[1])
             _, n_cache = _compare(f"{name} cache form",
-                                  *dense_cache_calls(cache, kk))
+                                  *dense_cache_calls(cache, k, Q))
             print(f"kernel==twin {name}: W={len(case['rows'])} finite "
-                  f"slots store form {n_store}, cache form {n_cache}, "
+                  f"slots store form {head[1]}, cache form {n_cache}, "
                   "bitwise equal")
 
 
@@ -1865,13 +2036,13 @@ def group_probe_vs_twin(log, baselines: dict) -> dict:
     kern, twin = group_calls(rec, rows)
     err, n_rep = _compare("group_probe synthetic", kern, twin)
     max_err = max(max_err, err)
-    ms = _device_ms([kern], 20)
+    ms = _single_ms([kern], 20)
     plain_ms = _time_ms(twin, 3)
     bound = bound_ms(group_probe_bytes(rec, rows))
     print(f"kernel==twin group_probe synthetic: W={rows.shape[0]} "
           f"T={rec['n_clauses']} kk={min(rec['k'], 128)} reported={n_rep} "
-          f"bitwise equal; kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, "
-          f"bound {bound:.4f} ms")
+          f"bitwise equal; kernel {_reading_text(ms)}, twin "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "baseline_synthetic_ms": baseline_synthetic("group_probe", kern,
@@ -1911,12 +2082,12 @@ def phrase_probe_vs_twin(log, baselines: dict) -> dict:
     kern, twin = phrase_calls(rec, rr, rows)
     err, n_rep = _compare("phrase_probe synthetic", kern, twin)
     max_err = max(max_err, err)
-    ms = _device_ms([kern], 20)
+    ms = _single_ms([kern], 20)
     plain_ms = _time_ms(twin, 3)
     bound = bound_ms(phrase_probe_bytes(rec, rr, rows))
     print(f"kernel==twin phrase_probe synthetic: W={rows.shape[0]} "
           f"S={rec['n_partners']} slab rows={rr} kk={min(rec['k'], 128)} "
-          f"reported={n_rep} bitwise equal; kernel {ms:.4f} ms, twin "
+          f"reported={n_rep} bitwise equal; kernel {_reading_text(ms)}, twin "
           f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
@@ -1956,14 +2127,14 @@ def bool_probe_vs_twin(log, baselines: dict) -> dict:
         kern, twin = bool_calls(rec, rows)
         err, n_rep = _compare(f"bool_probe synthetic kw{kw}", kern, twin)
         max_err = max(max_err, err)
-        ms = _device_ms([kern], 20)
+        ms = _single_ms([kern], 20)
         plain_ms = _time_ms(twin, 3)
         bound = bound_ms(bool_probe_bytes(rec, rows))
         times.append((ms, plain_ms, bound,
                       baseline_synthetic("bool_probe", kern, baselines)))
         print(f"kernel==twin bool_probe synthetic: W={W} kw={kw} T={t} "
               f"kk={min(rec['k'], 128)} reported={n_rep} bitwise equal; "
-              f"kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound "
+              f"kernel {_reading_text(ms)}, twin {plain_ms:.3f} ms, bound "
               f"{bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": times[0][0],
             "plain_ms": times[0][1], "bound_ms": times[0][2],
@@ -1990,12 +2161,13 @@ def deep_probe_vs_twin(log, baselines: dict) -> dict:
           "bitwise equal")
     rec = max(recs, key=lambda r: r["rows"].shape[0])
     kern, twin = deep_calls(rec)
-    ms = _device_ms([kern], 20)
+    ms = _single_ms([kern], 20)
     plain_ms = _time_ms(twin, 3)
     bound = bound_ms(deep_probe_bytes(rec, rec["rows"]))
     print(f"kernel==twin deep_probe largest chunk: W={rec['rows'].shape[0]} "
           f"T={rec['n_clauses']} kk={min(rec['k'], 128)} bitwise equal; "
-          f"kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound {bound:.4f} ms")
+          f"kernel {_reading_text(ms)}, twin {plain_ms:.3f} ms, bound "
+          f"{bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "baseline_synthetic_ms": baseline_synthetic(
@@ -2024,13 +2196,14 @@ def seg_phrase_vs_twin(seg_timing, baselines: dict) -> dict:
           "bitwise equal")
     rec = max(recs, key=lambda r: r["rows"].shape[0])
     kern, twin = seg_phrase_calls(rec)
-    ms = _device_ms([kern], 20)
+    ms = _single_ms([kern], 20)
     plain_ms = _time_ms(twin, 3)
     bound = bound_ms(seg_phrase_bytes(rec, rec["rows"]))
     print(f"kernel==twin seg_phrase largest chunk: W={rec['rows'].shape[0]} "
           f"T={rec['n_terms']} kw={rec['kw']} pw={rec['pw']} "
-          f"kk={min(rec['k'], 128)} bitwise equal; kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
+          f"kk={min(rec['k'], 128)} bitwise equal; kernel "
+          f"{_reading_text(ms)}, twin {plain_ms:.3f} ms, bound "
+          f"{bound:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "baseline_synthetic_ms": baseline_synthetic(
@@ -2095,6 +2268,12 @@ def profile_layers(executor, packed_executor, stream, seed: int,
             raise AssertionError(f"profile {suite}: torch.profiler recorded "
                                  "no device time")
         busy = sum(device.values())
+        if suite == "term_batch":
+            sorts = [name for name in device if "sort" in name.lower()]
+            if sorts:
+                raise AssertionError(f"profile term_batch: the dense term "
+                                     f"batch at k={K} ran sort kernels "
+                                     f"{sorts}")
         out[suite] = {
             "untraced_ms": untraced * 1e3,
             "traced_wall_ms": wall * 1e3,
@@ -2156,7 +2335,7 @@ def main(argv=None) -> int:
         packed_flat.launches = 0
         deep_probe.launches = 0
         phrase_scorer.launches = 0
-        dense_flat.launches = 0
+        dense_flat.reset_counts()
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2358,11 +2537,16 @@ def main(argv=None) -> int:
     print(f"term batch: {term_batch['qps']:.1f} QPS, p50 "
           f"{term_batch['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} "
           f"({gpu}); dense_flat (K7) "
-          f"{term_batch['launches_per_batch']:.1f} launches per timed batch, "
-          f"equal to the launch log's flat chunks; flat scorer (K7 and the "
-          f"merge tail) {term_batch['flat_ms']:.4f} ms device time over the "
+          f"{term_batch['launches_per_batch']:.1f} launches per timed batch "
+          f"({term_batch['by_kernel']} in all), the launch log's flat chunks "
+          f"times 2 kernels; flat scorer (K7 alone) "
+          f"{_ms_text(term_batch['flat_ms'])} device time over the "
           f"{term_batch['flat_calls']} calls ({term_batch['flat_items']} work "
-          f"items) of one batch, of it K7 {term_batch['k7_ms']:.4f} ms "
+          f"items) of one batch, against "
+          f"{_ms_text(term_batch['rows_route_ms'])} for the route of k > 128 "
+          f"on the same calls (K7's row stage and "
+          f"the torch merge tail); K7 replayed "
+          f"{_ms_text(term_batch['k7_ms'])} "
           f"(torch.profiler; twin {term_batch['k7_twin_ms']:.3f} ms between "
           f"CUDA events), {term_batch['k7_bytes']} bytes, bound "
           f"{bound_ms(term_batch['k7_bytes']):.4f} ms; every K7 chunk equals "
@@ -2382,7 +2566,7 @@ def main(argv=None) -> int:
           f"against the dense term batch's {term_batch['qps']:.1f} QPS, p50 "
           f"{term_batch['p50_ms']:.1f} ms; packed_flat (K5) "
           f"{packed['launches_per_batch']:.1f} launches per timed batch, "
-          f"{packed['ms']:.4f} ms device time over the {packed['chunks']} "
+          f"{_ms_text(packed['ms'])} device time over the {packed['chunks']} "
           f"chunks ({packed['items']} work items) of one batch "
           f"(torch.profiler; twin {packed['twin_ms']:.3f} ms between CUDA "
           f"events), "
@@ -2436,21 +2620,23 @@ def main(argv=None) -> int:
     # cache form) and the sharded dry run
     entry_out = run_entry(zero_counts)
     by_path["entry"] = entry_out["counts"]
-    print(f"entry: forward (term_scorer._topk_kernel, Q=8, B=4, k=10) on "
+    print(f"entry: forward (term_scorer._topk_kernel, Q=8, B=4, k=10: K7's "
+          f"group and select kernels) on "
           f"the card equals the CPU twin bitwise, {entry_out['finite']} "
-          f"finite slots; kernel {entry_out['k7_ms']:.4f} ms device time, "
+          f"finite slots; kernel {_reading_text(entry_out['k7_ms'])}, "
           f"bound {entry_out['bound_ms']:.6f} ms; dryrun_multichip(4) passed "
           f"on {entry_out['dryrun']['devices']} ({gpu}); launches "
           f"{by_path['entry']}")
 
     big_w, big_ms, big_twin_ms, big_bytes = packed["big_chunk"]
     print(f"kernel==twin packed_flat largest chunk: W={big_w} bitwise "
-          f"equal; kernel {big_ms:.4f} ms, twin {big_twin_ms:.3f} ms, bound "
-          f"{bound_ms(big_bytes):.4f} ms")
-    d_w, d_ms, d_twin_ms, d_bytes = term_batch["big_chunk"]
+          f"equal; kernel {_reading_text(big_ms)}, twin {big_twin_ms:.3f} "
+          f"ms, bound {bound_ms(big_bytes):.4f} ms")
+    d_w, d_ms, d_twin_ms, d_bytes, d_rows_ms = term_batch["big_chunk"]
     print(f"kernel==twin dense_flat largest chunk: W={d_w} bitwise equal; "
-          f"kernel {d_ms:.4f} ms, twin {d_twin_ms:.3f} ms, bound "
-          f"{bound_ms(d_bytes):.4f} ms")
+          f"kernel {_reading_text(d_ms)} (the route of k > 128: "
+          f"{_reading_text(d_rows_ms)}), "
+          f"twin {d_twin_ms:.3f} ms, bound {bound_ms(d_bytes):.4f} ms")
     stats = {"group_probe": group_probe_vs_twin(log, baselines),
              "phrase_probe": phrase_probe_vs_twin(log, baselines),
              "bool_probe": bool_probe_vs_twin(probe_log, baselines),
@@ -2465,9 +2651,19 @@ def main(argv=None) -> int:
              "dense_flat": {"max_abs_err": term_batch["max_abs_err"],
                             "ms": d_ms, "plain_ms": d_twin_ms,
                             "bound_ms": bound_ms(d_bytes),
+                            "rows_route_ms": d_rows_ms,
+                            "kernels_per_call": dense_flat.KERNELS_PER_CALL,
+                            "cuda_kernels": {
+                                "dense_flat_group_kernel":
+                                    term_batch["by_kernel"].get("group", 0),
+                                "dense_flat_select_kernel":
+                                    term_batch["by_kernel"].get("select", 0),
+                                "dense_flat_kernel (row stage, k > 128)":
+                                    term_batch["by_kernel"].get("rows", 0)},
                             "baseline_synthetic_ms": baseline_synthetic(
                                 "dense_flat", term_batch["big_call"],
-                                baselines, "largest chunk")}}
+                                baselines, "largest chunk",
+                                term_batch["big_rows_call"])}}
     hard_cases_vs_twin()
     per_batch = batch_kernel_times({
         **timing,
@@ -2504,6 +2700,7 @@ def main(argv=None) -> int:
         "launches_by_path": {path: counts.get(name, 0)
                              for path, counts in by_path.items()},
         **stats[name],
+        "ms_sources": _sources(stats[name]),
         "occupancy": occ[name],
         "bound_by": "bytes",
         "library_ms": None,

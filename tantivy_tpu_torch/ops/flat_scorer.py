@@ -3,10 +3,11 @@
 Counterpart of `tantivy_tpu/ops/flat_scorer.py`. One call scores a mixed
 work list of (query, block) pairs and returns the per-query top-k, ordered
 (qid asc, score desc, doc asc): TopNComputer's tie-break. The reference's
-`flat_topk_kernel` is an XLA program (`jax.jit`), not a Pallas kernel; its
-row stage (BM25 over the work items' store rows and each row's top-kk) is
-kernel K7's store form here (`ops/dense_flat.py`, `csrc/dense_flat.cu`),
-and the per-query merge is the packed-key merge tail of `probe_scorer`.
+`flat_topk_kernel` is an XLA program (`jax.jit`), not a Pallas kernel; the
+whole of it (BM25 over the work items' store rows and each query's top-k)
+is kernel K7's store form here (`ops/dense_flat.py`, `csrc/dense_flat.cu`)
+for k <= 128. Above that, K7's row stage gives each row's top-128 and the
+packed-key merge tail of `probe_scorer` merges them (`flat_topk_rows`).
 
 The rows come from the executor's `FusedStore` instead of a second upload
 of the postings. A cstore row holds a block's docs (columns 0:128), tfs
@@ -33,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dense_flat import dense_flat_store
+from .dense_flat import MAX_K, dense_flat_rows_store, dense_flat_store
 from .packed_flat import packed_flat_topk
 from .probe_scorer import pack_results, per_query_topk_from_rows
 
@@ -44,14 +45,30 @@ CHUNK = 32768
 
 def flat_topk(cstore, rows, qid, weights, k: int, num_queries: int):
     """Per-query top-k over work items: `rows` [W] int64 store rows, `qid`
-    [W] int32 query of each item, `weights` [Q] f32 BM25 weight per query,
-    all on `cstore`'s device. Kernel K7's store form (its twin on the CPU)
-    gives each row's top-kk, kk = min(k, 128): a query's top-k lies in the
-    union of its rows' top-kk. Returns the packed [2, Q, k] int32 form of
-    `probe_scorer.pack_results` (score bits | doc), -inf / 0 past a query's
-    hits."""
-    row_sc, row_doc = dense_flat_store(cstore, rows, qid, weights,
-                                       kk=min(k, 128))
+    [W] int32 query of each item (any order), `weights` [Q] f32 BM25 weight
+    per query, all on `cstore`'s device. Returns the packed [2, Q, k] int32
+    form of `probe_scorer.pack_results` (score bits | doc), ordered (score
+    desc, doc asc), -inf / 0 past a query's hits. For k <= `MAX_K` kernel
+    K7's store form computes it whole (its twin on the CPU); above, the row
+    stage and the merge tail (`flat_topk_rows`)."""
+    return _flat_topk(cstore, rows, qid, weights, k, num_queries)[0]
+
+
+def _flat_topk(cstore, rows, qid, weights, k: int, num_queries: int):
+    """`flat_topk` and the route it took: "topk" (K7 whole) or "rows" (the
+    row stage and the merge tail)."""
+    if k <= MAX_K:
+        return dense_flat_store(cstore, rows, qid, weights, k=k,
+                                num_queries=num_queries), "topk"
+    return flat_topk_rows(cstore, rows, qid, weights, k, num_queries), "rows"
+
+
+def flat_topk_rows(cstore, rows, qid, weights, k: int, num_queries: int):
+    """`flat_topk` through K7's row stage (each row's top-kk, kk =
+    min(k, 128): a query's top-k lies in the union of its rows' top-kk)
+    and the torch merge tail; the route for k above `MAX_K`."""
+    row_sc, row_doc = dense_flat_rows_store(cstore, rows, qid, weights,
+                                            kk=min(k, MAX_K))
     sc, dc = per_query_topk_from_rows(row_sc, row_doc, qid, k, num_queries)
     return pack_results(sc, dc)
 
@@ -101,11 +118,13 @@ class PackedFlatScorer(_BlockMaxPlanner):
 
 def dispatch_flat(cstore, rows: np.ndarray, qids: np.ndarray,
                   weights_pad: np.ndarray, k: int, num_queries: int,
-                  log: list | None = None) -> list:
+                  log: list | None = None,
+                  routes: dict | None = None) -> list:
     """`flat_topk` over (store row, qid) work items in chunks of `CHUNK`.
     Returns one packed [2, Q, k] tensor per chunk, on `cstore`'s device.
     When `log` is a list, each chunk's exact inputs are appended to it,
-    tagged `kind="flat"`."""
+    tagged `kind="flat"`; when `routes` is a dict, each chunk adds one to
+    the count of the route it took (`_flat_topk`)."""
     dev = cstore.device
     w_dev = torch.from_numpy(
         np.ascontiguousarray(weights_pad, dtype=np.float32)
@@ -120,7 +139,10 @@ def dispatch_flat(cstore, rows: np.ndarray, qids: np.ndarray,
         )
         if log is not None:
             log.append(dict(kind="flat", args=args))
-        outs.append(flat_topk(*args))
+        out, route = _flat_topk(*args)
+        outs.append(out)
+        if routes is not None:
+            routes[route] = routes.get(route, 0) + 1
     return outs
 
 

@@ -392,7 +392,9 @@ class BatchExecutor:
         Phase 1 scores each query's best block-max blocks everywhere to set a
         per-query threshold; phase 2 scores only blocks whose block-max beats
         it. Exact modulo the reference's own block-max caveat. `terms` are
-        `Term`s. Returns list[list[(score, DocAddress)]]."""
+        `Term`s. Returns list[list[(score, DocAddress)]]. In dense mode a k
+        above kernel K7's cap takes its row stage and the torch merge; each
+        such flat chunk counts in `plan_stats["flat_rows_k"]`."""
         from ..ops.flat_scorer import dispatch_flat, dispatch_packed_flat
 
         Q = len(terms)
@@ -418,12 +420,17 @@ class BatchExecutor:
 
             def dispatch(work):
                 # one flat launch per segment: store rows of every field mix
-                return dispatch_flat(
+                routes = {}
+                outs = dispatch_flat(
                     fused.cstore,
                     np.concatenate([sc.store_rows(b) for sc, b, _ in work]),
                     np.concatenate([q for _, _, q in work]),
-                    weights_pad, k, Q, log=self.launch_log,
+                    weights_pad, k, Q, log=self.launch_log, routes=routes,
                 )
+                if routes.get("rows"):
+                    # above K7's cap: its row stage and the torch merge
+                    self._count_plan("flat_rows_k", routes["rows"])
+                return outs
         else:
             w_dev = torch.from_numpy(weights_pad).to(self.device)
             c_dev = torch.from_numpy(caches_pad).to(self.device)

@@ -83,6 +83,48 @@ def test_matches_reference(fixture, k):
     check(index.reader().searcher(), terms, k=k)
 
 
+def test_k_above_the_kernel_cap_takes_the_row_stage():
+    """k = 200 (above K7's per-query cap of 128): every flat chunk takes the
+    row stage and the torch merge, counted in `plan_stats["flat_rows_k"]`;
+    hits still equal the reference's and the host engine's. At k = 10 no
+    chunk takes it."""
+    index, words = build_zipf_index()
+    searcher = index.reader().searcher()
+    terms = [tt.Term.from_field_text(f, w)
+             for w in words for f in ("body", "title")]
+    for k, rows_route in ((200, True), (10, False)):
+        ex = check(searcher, terms, k=k)
+        ex.launch_log = []
+        ex.search_term_batch(to_port(terms), k)
+        chunks = sum(rec["kind"] == "flat" for rec in ex.launch_log)
+        assert chunks > 0
+        want = 2 * chunks if rows_route else 0
+        assert ex.plan_stats.get("flat_rows_k", 0) == want, ex.plan_stats
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_query_split_across_chunks(k, monkeypatch):
+    """Chunks of 7 work items: one query's blocks land in several flat
+    calls, whose per-query top-k the executor merges; hits still equal the
+    reference's and the host engine's."""
+    from tantivy_tpu_torch.ops import flat_scorer
+
+    monkeypatch.setattr(flat_scorer, "CHUNK", 7)
+    index, words = build_random_index(num_docs=4000, vocab=12, num_commits=2)
+    searcher = index.reader().searcher()
+    ex = BatchExecutor(port_searcher(searcher), device="cpu")
+    ex.launch_log = []
+    terms = [tt.Term.from_field_text("body", w) for w in words]
+    ex.search_term_batch(to_port(terms), k)
+    calls = [rec["args"] for rec in ex.launch_log if rec["kind"] == "flat"]
+    seen: dict = {}
+    for args in calls:
+        for q in np.unique(args[2].numpy()):
+            seen[int(q)] = seen.get(int(q), 0) + 1
+    assert max(seen.values()) > 1, "no query spans two chunks"
+    check(searcher, terms, k=k)
+
+
 def test_two_phase_prunes():
     """A dense corpus: terms span many blocks per segment, so phase 2 ships
     only the blocks that can beat the phase-1 threshold; hits stay exact."""
@@ -138,6 +180,35 @@ def test_flat_topk_matches_reference_kernel(k):
     # every query has hits, and ties (6 norm ids x 3 tfs) cut its top-k
     sc = got[0].view(np.float32)
     assert np.isfinite(sc[:, 0]).all()
+
+
+@pytest.mark.parametrize("k,route", [(1, "topk"), (128, "topk"),
+                                     (129, "rows")])
+def test_dispatch_flat_reports_route(k, route, monkeypatch):
+    """`dispatch_flat` counts each chunk under the route `flat_topk` took
+    (K7 whole up to its cap, the row stage and the merge tail above), and
+    each chunk's output is `flat_topk`'s on that chunk."""
+    from tantivy_tpu_torch.ops import flat_scorer
+
+    monkeypatch.setattr(flat_scorer, "CHUNK", 64)
+    rng = np.random.default_rng(k)
+    docs, tfs, norm_ids, alive = _random_store(rng)
+    cstore = torch.from_numpy(build_cstore_np(
+        docs, tfs, norm_ids, alive,
+        compute_tf_cache(np.float32(7.3))).view(np.int32))
+    Q, W = 5, 150
+    rows = rng.integers(0, docs.shape[0], W)
+    qid = rng.integers(0, Q, W).astype(np.int32)
+    weights = rng.uniform(0.5, 3.0, Q + 1).astype(np.float32)
+    routes = {}
+    outs = flat_scorer.dispatch_flat(cstore, rows, qid, weights, k, Q,
+                                     routes=routes)
+    assert routes == {route: 3}
+    for lo, got in zip(range(0, W, 64), outs):
+        want = flat_topk(cstore, torch.from_numpy(rows[lo:lo + 64]),
+                         torch.from_numpy(qid[lo:lo + 64]),
+                         torch.from_numpy(weights), k, Q)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

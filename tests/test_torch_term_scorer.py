@@ -84,8 +84,8 @@ def port(args, k, device="cpu"):
 
 def _k(args, which: str) -> int:
     B = args[0].shape[1]
-    return {"1": 1, "10": 10, "full": B * 128, "200": min(200, B * 128)}[
-        which]
+    return {"1": 1, "10": 10, "128": 128, "full": B * 128,
+            "200": min(200, B * 128)}[which]
 
 
 def assert_same(got, want):
@@ -94,7 +94,7 @@ def assert_same(got, want):
     assert np.array_equal(got[1].view(np.uint32), want[1].view(np.uint32))
 
 
-@pytest.mark.parametrize("which", ["1", "10", "200", "full"])
+@pytest.mark.parametrize("which", ["1", "10", "128", "200", "full"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_matches_reference(kind, which):
     args = make_case(kind)
@@ -126,6 +126,41 @@ def test_ties_follow_the_flat_index_across_rows():
         "docs of the tied slots should not be in doc order")
 
 
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("kind", ["tiny_index", "sparse", "invalid"])
+def test_cache_form_takes_items_in_any_query_order(kind, k):
+    """K7's cache form (`dense_flat_cache`) over `_topk_kernel`'s Q * B
+    rows with the queries interleaved (each query's rows kept in order):
+    the reference's top-k of every query, -inf slots of a query with fewer
+    than k live lanes included."""
+    from tantivy_tpu_torch.ops.dense_flat import dense_flat_cache
+
+    args = make_case(kind)
+    docs, tfs, valid, norm_ids, weights, caches, alive = args
+    Q, B, _ = docs.shape
+    k = min(k, B * 128)
+    want = reference(args, k)
+    # item order: row b of every query, then row b + 1 of every query
+    order = np.arange(Q * B).reshape(Q, B).T.reshape(-1)
+
+    def rows(a):
+        a = a.reshape(Q * B, -1)[order] if a.ndim == 3 else a.reshape(-1)[
+            order]
+        return torch.from_numpy(np.ascontiguousarray(
+            a.view(np.int32) if a.dtype == np.uint32 else a))
+
+    def whole(a):
+        return None if a is None else torch.from_numpy(np.array(a))
+
+    got = dense_flat_cache(
+        rows(docs), rows(tfs), rows(valid),
+        whole((order // B).astype(np.int32)), whole(norm_ids), whole(alive),
+        whole(weights), whole(caches), k=k, num_queries=Q)
+    assert_same(tuple(x.numpy() for x in got), want)
+    if kind == "sparse" and k == 128:
+        assert np.isinf(want[0]).any()
+
+
 def test_k_above_the_rows_raises():
     args = make_case("q1_b1")
     with pytest.raises(ValueError):
@@ -141,7 +176,7 @@ def test_kernel_on_cuda_matches_reference_and_twin(kind, monkeypatch):
         pytest.skip("needs a CUDA device")
     zstd_stub.use(monkeypatch)
     args = make_case(kind)
-    for which in ("1", "10", "200", "full"):
+    for which in ("1", "10", "128", "200", "full"):
         k = _k(args, which)
         got = port(args, k, "cuda")
         assert_same(got, port(args, k))
