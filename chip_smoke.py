@@ -16,24 +16,44 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
 3. index: a Zipf corpus (one `body` TEXT field, windows of 20-100 tokens
    over a 30,000-word token stream built from the seed), committed in 4
    segments;
-4. main path: `BatchExecutor(searcher, device="cuda").search_batch` on
-   256-query term, AND and OR batches, on a batch of 3-4 clause queries,
+4. main path (the fused route): `BatchExecutor(searcher,
+   device="cuda").search_batch` on 256-query term, AND and OR batches, on
+   a batch of 3-4 clause queries,
    on bigram phrases and two-term phrase-prefixes sampled from the token
    stream (one warm and TIMED_BATCHES timed batches each), then on one
    untimed batch of 3- and 4-term phrases from the stream, k = 10, with
    every kernel launch counter reset just before and read just after;
    prints per-suite QPS, p50 batch latency and how many (query, segment)
    plans the planner sent to the host engine, by reason;
-5. probe path: `executor.search_boolean_batch` (the per-segment Block-WAND
-   path: the windowed-probe kernel K3 and the deep-probe kernel K4) on the
+4b. segment route: `search_batch` of a second executor on the same index,
+   `BatchExecutor(searcher, device="cuda", fused=False)` (the reference's
+   XLA-mode routing: term queries on the flat scorer, K7; one-field
+   booleans on the per-segment Block-WAND path, K3 and K4; slop-0 phrases
+   on the per-segment phrase plan, K6; nothing expanded), on the term,
+   AND, OR, 3-4 clause and bigram phrase logs, one warm and TIMED_BATCHES
+   timed batches each, with every launch counter reset just before the
+   phase and read just after; the hits of every timed batch must equal
+   the main path's list for list, and per suite K7's launches must equal
+   the launch log's flat chunks times its 2 kernels, K3's the planner's
+   launches over its rungs, K4's `probe_deep`, K6's `phrase_seg`, with no
+   K1, K2 or K5 launch; prints per suite QPS and p50 beside the main
+   path's, launches, `host_routed` and host plans by reason; then the
+   first SEGMENT_PREFIX_QUERIES queries of the prefix log in one batch (no
+   warm batch), which this route sends wholly to the host engine, with no
+   launch: ms per query beside the main path's; then the peak device
+   memory, both executors' fused stores on the card;
+5. probe path: `search_boolean_batch` of the `fused=False` executor (the
+   per-segment Block-WAND path: the windowed-probe kernel K3 and the
+   deep-probe kernel K4; the fused executor's runs the fused chain) on the
    term (each query wrapped as a one-clause union), AND, OR and 3-4 clause
    logs, one warm and TIMED_BATCHES timed batches each, with every launch
    counter reset just before and read just after (K4's launches must equal
-   the planner's `probe_deep` count); prints per suite QPS, p50,
-   windowed-probe launches per rung, deep-path launches and host plans,
-   then the phase's peak device memory;
-5b. per-segment phrase path: `executor._search_phrase_seg` (the
-   reference's per-segment Block-WAND phrase plan: kernel K6) on the
+   the planner's `probe_deep` count, and K1 and K2 may not launch); prints
+   per suite QPS, p50, windowed-probe launches per rung, deep-path
+   launches and host plans, then the phase's peak device memory;
+5b. per-segment phrase path: `search_phrase_batch` of the `fused=False`
+   executor (the reference's per-segment Block-WAND phrase plan: kernel
+   K6) on the
    bigram phrase log and on a log of 3- and 4-term phrases, one warm and
    TIMED_BATCHES timed batches each, with every launch counter reset just
    before and read just after (K6's launches must equal the planner's
@@ -41,11 +61,14 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    QPS and p50 beside the main path's phrase suite (K2), K6 launches and
    host plans by reason (`phrase_seg_wide_window` among them, now 0); the
    bigram suite's hits must equal the main path's phrase suite's list for
-   list; then one batch of the bigram log through `search_phrase_batch`,
-   which on the card must run the fused chain alone (K2, no K6) and give
-   the main path's hits;
-6. exactness: sampled queries of every suite of the three paths must give
-   the host engine's hits (DocAddresses, order and f32 score bits);
+   list; then one batch of the bigram log through `search_phrase_batch` of
+   each executor: the fused executor's must run the fused chain alone
+   (K2, no K6), the `fused=False` executor's the per-segment plan alone
+   (K6, no K2), and both must give the main path's hits;
+6. exactness: sampled queries of every suite of the four paths (the
+   segment route's prefix batch, which the host engine answered, aside)
+   must give the host engine's hits (DocAddresses, order and f32 score
+   bits);
 6a. pipelined: `executor.search_batches(..., pipeline=PIPELINE)` over the
    timed batches of every main-path suite (all of them in flight, each on
    its own CUDA stream), with the launch counters reset just before and read just after;
@@ -136,7 +159,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    differs from the current kernel's are printed beside (and the largest
    packed and deep chunks' ms through those kernels);
 9. with `--profile PATH` only: one more fresh batch per timed suite of
-   both paths, of the phrase log through `search_phrase_batch`, and of
+   the main path, the segment route and the probe path, of the phrase
+   log through the per-segment plan, and of
    the term log through the dense and the packed executor's
    `search_term_batch`, with the engine's host spans and
    `torch.profiler` on; the
@@ -144,9 +168,9 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    goes to PATH as JSON.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, whose `launches_by_path` gives each kernel's
-launches on every path above that resets the counters (main, probe,
-phrase_seg, pipelined, term_batch, packed_term_batch, sharded, warmer,
-entry). The script imports nothing of `tantivy_tpu` or
+launches on every path above that resets the counters (main, segment,
+probe, phrase_seg, pipelined, term_batch, packed_term_batch, sharded,
+warmer, entry). The script imports nothing of `tantivy_tpu` or
 jax: the port stands alone.
 """
 
@@ -180,6 +204,11 @@ SYNTH_PROBE = ((65536, 2, 2), (8192, 64, 4))
 PROBE_SUITES = ("term", "and", "or", "multi")
 #: the windowed-probe kernel's rungs (window rows kw)
 PROBE_RUNGS = (2, 8, 64)
+#: the main path's suites that the segment route (phase 4b) runs
+SEGMENT_SUITES = ("term", "and", "or", "multi", "phrase")
+#: the queries of the prefix log that the segment route runs, all on the
+#: host engine
+SEGMENT_PREFIX_QUERIES = 32
 #: why the per-segment phrase plan sends a (query, segment) to the host
 #: engine (`fallbacks`); the port has no wide-window reason any more, and
 #: the smoke shows its count of 0
@@ -583,20 +612,21 @@ def run_probe_path(executor, logs, n_seg: int):
 
 
 def run_phrase_seg(executor, logs, long_log, n_seg: int):
-    """The per-segment phrase plan (`executor._search_phrase_seg`, kernel
-    K6) on the bigram phrase log and on the 3-4 term phrase log: one warm
-    batch, then TIMED_BATCHES fresh batches each. Returns per-suite
-    timings, with the timed batches' K6 launches and host plans by reason,
-    and the (query, hits) pairs of the timed batches."""
+    """The per-segment phrase plan (`search_phrase_batch` of a
+    `fused=False` executor, kernel K6) on the bigram phrase log and on the
+    3-4 term phrase log: one warm batch, then TIMED_BATCHES fresh batches
+    each. Returns per-suite timings, with the timed batches' K6 launches
+    and host plans by reason, and the (query, hits) pairs of the timed
+    batches."""
     timing, answered = {}, {}
     for suite, qlog in (("phrase_seg", logs["phrase"]),
                         ("phrase_seg34", long_log)):
-        executor._search_phrase_seg(qlog[:BATCH], K)
+        executor.search_phrase_batch(qlog[:BATCH], K)
         fb0 = dict(executor.fallbacks)
         stats0 = dict(executor.plan_stats)
         counts0 = launch_counts()
         qps, p50_ms, pairs, batch_log = timed_batches(
-            executor._search_phrase_seg, qlog, executor.launch_log
+            executor.search_phrase_batch, qlog, executor.launch_log
         )
         by_reason = {why: executor.fallbacks.get(why, 0) - fb0.get(why, 0)
                      for why in PHRASE_SEG_HOST_REASONS}
@@ -613,6 +643,85 @@ def run_phrase_seg(executor, logs, long_log, n_seg: int):
         }
         answered[suite] = pairs
     return timing, answered
+
+
+def run_segment_route(executor, logs, answered, n_seg: int):
+    """Phase 4b: `search_batch` of a `fused=False` executor on each
+    SEGMENT_SUITES log, one warm batch, then TIMED_BATCHES fresh batches.
+    The hits of every timed batch must equal the main path's (`answered`)
+    list for list, and each suite's timed batches must launch K7 twice a
+    flat chunk, K3 once a planned windowed chunk, K4 once a planned deep
+    chunk, K6 once a planned per-segment phrase chunk and no other kernel.
+    Then the first SEGMENT_PREFIX_QUERIES queries of the prefix log in one
+    batch, with no warm batch, which must all run on the host engine with
+    no launch. Returns per-suite timings, with launches, the planner's
+    counts, host-routed queries and host plans by reason, the prefix
+    batch's seconds, and the (query, hits) pairs of the timed batches."""
+    import torch
+
+    from tantivy_tpu_torch.ops import dense_flat
+
+    timing, seg_answered = {}, {}
+    for suite in SEGMENT_SUITES:
+        qlog = logs[suite]
+        executor.search_batch(qlog[:BATCH], K)
+        fb0 = dict(executor.fallbacks)
+        stats0 = dict(executor.plan_stats)
+        routed0 = executor.host_routed
+        counts0 = launch_counts()
+        n0 = len(executor.launch_log)
+        qps, p50_ms, pairs, _ = timed_batches(executor.search_batch, qlog,
+                                              executor.launch_log)
+
+        def planned(kind):
+            return executor.plan_stats.get(kind, 0) - stats0.get(kind, 0)
+
+        launched = {name: n - counts0[name]
+                    for name, n in launch_counts().items()}
+        flat = sum(rec["kind"] == "flat" for rec in executor.launch_log[n0:])
+        k3_by_kw = {kw: planned(f"probe_kw{kw}") for kw in PROBE_RUNGS}
+        want = {"dense_flat": flat * dense_flat.KERNELS_PER_CALL,
+                "bool_probe": sum(k3_by_kw.values()),
+                "deep_probe": planned("probe_deep"),
+                "seg_phrase": planned("phrase_seg")}
+        want = {name: want.get(name, 0) for name in launched}
+        if launched != want:
+            raise AssertionError(f"segment {suite}: launched {launched}, "
+                                 f"the planner and launch log count {want}")
+        if [bits(h) for _, h in pairs] != [
+                bits(h) for _, h in answered[suite]]:
+            raise AssertionError(f"segment {suite}: hits differ from the "
+                                 "main path's")
+        timing[suite] = {
+            "qps": qps,
+            "p50_ms": p50_ms,
+            "launches_per_batch": {name: n / TIMED_BATCHES
+                                   for name, n in launched.items() if n},
+            "k3_by_kw": k3_by_kw,
+            "flat_chunks": flat,
+            "host_routed": executor.host_routed - routed0,
+            "host_by_reason": {
+                why: n - fb0.get(why, 0)
+                for why, n in executor.fallbacks.items()
+                if n != fb0.get(why, 0)},
+            "plans": len(pairs) * n_seg,
+        }
+        seg_answered[f"segment_{suite}"] = pairs
+    prefixes = logs["prefix"][:SEGMENT_PREFIX_QUERIES]
+    routed0 = executor.host_routed
+    counts0 = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    executor.search_batch(prefixes, K)
+    torch.cuda.synchronize()
+    prefix_s = time.perf_counter() - t0
+    launched = {name: n - counts0[name]
+                for name, n in launch_counts().items() if n != counts0[name]}
+    if launched or executor.host_routed - routed0 != len(prefixes):
+        raise AssertionError(
+            f"segment prefix: {executor.host_routed - routed0} of "
+            f"{len(prefixes)} queries on the host engine, launched {launched}")
+    return timing, seg_answered, prefix_s
 
 
 def check_exact(searcher, answered, seed: int) -> None:
@@ -2210,12 +2319,13 @@ def seg_phrase_vs_twin(seg_timing, baselines: dict) -> dict:
                 "seg_phrase", kern, baselines, "largest chunk")}
 
 
-def profile_layers(executor, packed_executor, stream, seed: int,
-                   path: str) -> None:
-    """Per-layer breakdown of one fresh batch per suite of both paths (the
-    probe path's suites are named `probe_*`), of the phrase log through
-    the per-segment plan (`phrase_seg`) and of the term log through
-    `search_term_batch` on the dense and the packed executor
+def profile_layers(executor, seg_executor, packed_executor, stream,
+                   seed: int, path: str) -> None:
+    """Per-layer breakdown of one fresh batch per suite of the main path,
+    of the segment route (`seg_executor.search_batch`, suites named
+    `segment_*`) and of the probe path (`probe_*`), of the phrase log
+    through the per-segment plan (`phrase_seg`) and of the term log
+    through `search_term_batch` on the dense and the packed executor
     (`term_batch`, `packed_term_batch`): an untraced batch, then
     another with the engine's host spans (`tantivy_tpu_torch.utils.trace`) and
     `torch.profiler` on. Device time is the sum of the CUDA kernels' and
@@ -2230,18 +2340,23 @@ def profile_layers(executor, packed_executor, stream, seed: int,
 
     out = {}
     logs = query_logs(stream, seed + 100, 2 * BATCH)
-    runs = [(suite, executor.search_batch, qlog)
+    runs = [(suite, executor, executor.search_batch, qlog)
             for suite, qlog in logs.items()]
-    runs += [(f"probe_{suite}", executor.search_boolean_batch, qlog)
+    runs += [(f"segment_{suite}", seg_executor, seg_executor.search_batch,
+              logs[suite]) for suite in SEGMENT_SUITES]
+    runs += [(f"probe_{suite}", seg_executor,
+              seg_executor.search_boolean_batch, qlog)
              for suite, qlog in probe_logs(logs).items()]
-    runs.append(("phrase_seg", executor._search_phrase_seg, logs["phrase"]))
+    runs.append(("phrase_seg", seg_executor, seg_executor.search_phrase_batch,
+                 logs["phrase"]))
 
     def term_batch(ex):
         return lambda qs, k: ex.search_term_batch([q.term for q in qs], k)
 
-    runs += [("term_batch", term_batch(executor), logs["term"]),
-             ("packed_term_batch", term_batch(packed_executor), logs["term"])]
-    for suite, search, qlog in runs:
+    runs += [("term_batch", executor, term_batch(executor), logs["term"]),
+             ("packed_term_batch", packed_executor,
+              term_batch(packed_executor), logs["term"])]
+    for suite, ex, search, qlog in runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         search(qlog[:BATCH], K)
@@ -2249,7 +2364,7 @@ def profile_layers(executor, packed_executor, stream, seed: int,
         untraced = time.perf_counter() - t0
         tracer.clear()
         tracer.enable()
-        before = sum(executor.fallbacks.values())
+        before = sum(ex.fallbacks.values())
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2279,7 +2394,7 @@ def profile_layers(executor, packed_executor, stream, seed: int,
             "traced_wall_ms": wall * 1e3,
             "device_busy_ms": busy,
             "idle_share": 1 - busy / (wall * 1e3),
-            "host_plans": sum(executor.fallbacks.values()) - before,
+            "host_plans": sum(ex.fallbacks.values()) - before,
             "host_spans_ms": {k: v * 1e3 for k, v in
                               sorted(tracer.span_totals().items())},
             "device_ms": dict(sorted(device.items(), key=lambda kv: -kv[1])),
@@ -2410,19 +2525,64 @@ def main(argv=None) -> int:
         raise AssertionError(
             f"{executor.host_routed} queries were routed to the host engine"
         )
+    executor.launch_log = None
 
-    # the probe path, with its own counts and peak memory
+    # 4b. the segment route: a second executor, fused=False, with its own
+    # fused store
+    seg = BatchExecutor(searcher, device="cuda", fused=False)
+    seg.launch_log = []
+    zero_counts()
+    seg_route, seg_route_answered, prefix_s = run_segment_route(
+        seg, logs, answered, n_seg)
+    by_path = {"segment": launch_counts()}
+    seg.launch_log = None
+    for suite, tm in seg_route.items():
+        fused_tm = timing[suite]
+        print(f"segment suite {suite}: {tm['qps']:.1f} QPS, p50 "
+              f"{tm['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} ({gpu}), "
+              f"against the main path's (fused route) {fused_tm['qps']:.1f} "
+              f"QPS, p50 {fused_tm['p50_ms']:.1f} ms: "
+              f"{tm['qps'] / fused_tm['qps']:.2f}x "
+              f"its QPS; launches per timed batch "
+              f"{tm['launches_per_batch']} (bool_probe by kw "
+              f"{tm['k3_by_kw']}, {tm['flat_chunks']} flat chunks), the "
+              f"planner's and launch log's counts; host_routed "
+              f"{tm['host_routed']}; host plans by reason "
+              f"{tm['host_by_reason']} of {tm['plans']} (query, segment) "
+              f"plans; hits equal the main path's list for list")
+    n_prefix = SEGMENT_PREFIX_QUERIES
+    print(f"segment suite prefix: the first {n_prefix} queries of the prefix "
+          f"log in one batch, no warm batch, all on the host engine, no "
+          f"launch: {prefix_s:.2f} s, {prefix_s * 1e3 / n_prefix:.1f} ms per "
+          f"query, against the main path's (fused route) "
+          f"{timing['prefix']['p50_ms'] / BATCH:.1f} ms per query (p50 "
+          f"batch / {BATCH}) ({gpu})")
+    seg_store = seg._fused()
+    print(f"launches on the segment route: {by_path['segment']}; "
+          f"host_routed={seg.host_routed} fallbacks={seg.fallbacks}; its "
+          f"fused store: cstore {tuple(seg_store.cstore.shape)}, postore "
+          f"{tuple(seg_store.postore.shape)}; peak device memory with both "
+          f"executors' stores {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held now")
+    for name in ("dense_flat", "bool_probe", "deep_probe", "seg_phrase"):
+        if by_path["segment"][name] == 0:
+            raise AssertionError(f"the segment route launched no {name} "
+                                 "kernel")
+
+    # 5. the probe path on the fused=False executor, with its own counts
+    # and peak memory
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    stats0 = dict(executor.plan_stats)
-    probe_timing, probe_answered = run_probe_path(executor, logs, n_seg)
+    stats0 = dict(seg.plan_stats)
+    seg.launch_log = []
+    probe_timing, probe_answered = run_probe_path(seg, logs, n_seg)
     launches["bool_probe"] = bool_probe.launches
     launches["deep_probe"] = deep_probe.launches
-    probe_rungs = {kw: executor.plan_stats.get(f"probe_kw{kw}", 0)
+    probe_rungs = {kw: seg.plan_stats.get(f"probe_kw{kw}", 0)
                    - stats0.get(f"probe_kw{kw}", 0) for kw in PROBE_RUNGS}
-    probe_deep = (executor.plan_stats.get("probe_deep", 0)
+    probe_deep = (seg.plan_stats.get("probe_deep", 0)
                   - stats0.get("probe_deep", 0))
-    executor.launch_log, probe_log = None, executor.launch_log
+    seg.launch_log, probe_log = None, seg.launch_log
     for suite, tm in probe_timing.items():
         print(f"probe suite {suite}: {tm['qps']:.1f} QPS, p50 "
               f"{tm['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} ({gpu}); "
@@ -2442,20 +2602,24 @@ def main(argv=None) -> int:
         raise AssertionError(f"deep_probe launched {launches['deep_probe']} "
                              f"times, the planner counted {probe_deep} deep "
                              "chunks")
+    if group_probe.launches or phrase_probe.launches:
+        raise AssertionError("the probe path launched the fused chains' "
+                             "kernels")
 
-    # 5b. the per-segment phrase path, with its own counts and peak memory
+    # 5b. the per-segment phrase path on the fused=False executor, with its
+    # own counts and peak memory
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    stats0 = dict(executor.plan_stats)
-    executor.launch_log = []
+    stats0 = dict(seg.plan_stats)
+    seg.launch_log = []
     seg_timing, seg_answered = run_phrase_seg(
-        executor, logs,
+        seg, logs,
         long_phrases(stream, args.seed, BATCH * (1 + TIMED_BATCHES)), n_seg)
     seg_counts = launch_counts()
     launches["seg_phrase"] = seg_counts["seg_phrase"]
-    seg_planned = (executor.plan_stats.get("phrase_seg", 0)
+    seg_planned = (seg.plan_stats.get("phrase_seg", 0)
                    - stats0.get("phrase_seg", 0))
-    executor.launch_log = None
+    seg.launch_log = None
     main_phrase = timing["phrase"]
     for suite, tm in seg_timing.items():
         print(f"phrase_seg suite {suite}: {tm['qps']:.1f} QPS, p50 "
@@ -2485,29 +2649,33 @@ def main(argv=None) -> int:
                              "phrase suite")
     print("phrase_seg: hits of the timed batches equal the main path's "
           "phrase suite list for list")
-    # search_phrase_batch's route on the card: the fused chain (K2)
-    zero_counts()
-    routed = executor.search_phrase_batch(
-        logs["phrase"][BATCH:2 * BATCH], K)
-    routed_counts = launch_counts()
-    if routed_counts["seg_phrase"] or not routed_counts["phrase_probe"]:
-        raise AssertionError(f"search_phrase_batch launched {routed_counts} "
-                             "on the card, not the fused chain alone")
-    if [bits(h) for h in routed] != [
-            bits(h) for _, h in answered["phrase"][:BATCH]]:
-        raise AssertionError("search_phrase_batch: hits differ from the "
-                             "main path's phrase suite")
-    print(f"search_phrase_batch on the card: the fused chain "
-          f"(phrase_probe launches {routed_counts['phrase_probe']}, "
-          f"seg_phrase 0), hits equal the main path's phrase suite")
+    # search_phrase_batch's route on the card, on each executor: the fused
+    # chain (K2) on the fused route, the per-segment plan (K6) on the other
+    for ex, route, kernel in ((executor, "fused", "phrase_probe"),
+                              (seg, "fused=False", "seg_phrase")):
+        zero_counts()
+        routed = ex.search_phrase_batch(logs["phrase"][BATCH:2 * BATCH], K)
+        routed_counts = {n: c for n, c in launch_counts().items() if c}
+        if list(routed_counts) != [kernel]:
+            raise AssertionError(f"search_phrase_batch on the {route} "
+                                 f"executor launched {routed_counts} on the "
+                                 f"card, not {kernel} alone")
+        if [bits(h) for h in routed] != [
+                bits(h) for _, h in answered["phrase"][:BATCH]]:
+            raise AssertionError(f"search_phrase_batch on the {route} "
+                                 "executor: hits differ from the main "
+                                 "path's phrase suite")
+        print(f"search_phrase_batch on the card, {route} executor: "
+              f"{routed_counts} alone, hits equal the main path's phrase "
+              "suite")
 
-    check_exact(searcher, {**answered, **probe_answered, **seg_answered},
-                args.seed)
-    by_path = {"main": {"group_probe": launches["group_probe"],
-                        "phrase_probe": launches["phrase_probe"]},
-               "probe": {"bool_probe": launches["bool_probe"],
-                         "deep_probe": launches["deep_probe"]},
-               "phrase_seg": {"seg_phrase": launches["seg_phrase"]}}
+    check_exact(searcher, {**answered, **seg_route_answered,
+                           **probe_answered, **seg_answered}, args.seed)
+    by_path.update({"main": {"group_probe": launches["group_probe"],
+                             "phrase_probe": launches["phrase_probe"]},
+                    "probe": {"bool_probe": launches["bool_probe"],
+                              "deep_probe": launches["deep_probe"]},
+                    "phrase_seg": {"seg_phrase": launches["seg_phrase"]}})
 
     def read_counts(path: str, needed) -> None:
         by_path[path] = launch_counts()
@@ -2678,7 +2846,7 @@ def main(argv=None) -> int:
     }, baselines, occ)
     print(f"library call: none for any kernel: {NO_LIBRARY}")
     if args.profile:
-        profile_layers(executor, packed["executor"], stream, args.seed,
+        profile_layers(executor, seg, packed["executor"], stream, args.seed,
                        args.profile)
 
     replaces = {"group_probe": "tantivy_tpu/ops/pallas_probe.py:533",

@@ -1,41 +1,55 @@
 """Batched search on the port: term, AND, OR, phrase and phrase-prefix
-batches through the fused group-probe and position-probe kernels.
+batches through the reference's two routings, which the caller picks
+(`BatchExecutor(..., fused=...)`).
 
-Counterpart of `tantivy_tpu/parallel/__init__.py`'s `BatchExecutor`, reduced
-to its fused (Pallas-mode) paths. Host planning (termdict lookups, BM25
-weights, block-max upper bounds, the two-phase WAND threshold, hit
-collection) is the reference's numpy code, copied into this package (the
-helpers below, `parallel/wand.py`); only the launch seam differs, pointing
-at the port's modules. Two chains run on the device:
-* every term and boolean(term) query: `_search_boolean_fused` ->
+Counterpart of `tantivy_tpu/parallel/__init__.py`'s `BatchExecutor`. Host
+planning (termdict lookups, BM25 weights, block-max upper bounds, the
+two-phase WAND threshold, hit collection) is the reference's numpy code,
+copied into this package (the helpers below, `parallel/wand.py`); only the
+launch seam differs, pointing at the port's modules. Five chains run on
+the device:
+* the fused boolean chain: `_search_boolean_fused` ->
   `fused_bool.launch_fused_bool` -> `fused_bool_topk` -> the group-probe
-  kernel and the merge tail;
-* every slop-0 phrase and multi-term phrase-prefix: `_search_phrase_fused`
-  -> `fused_phrase.launch_fused_phrase` -> `fused_phrase_topk` -> the
-  position-probe kernel and the merge tail.
-A third chain is the reference's per-segment Block-WAND boolean path,
-reached only through `search_boolean_batch`: per (segment, field, clause
-bucket) work lists -> `probe_scorer.dispatch_probe` -> the windowed-probe
-kernel (`bool_probe.bool_probe_topk`) or the deep per-lane probe, each
-with a per-segment merge tail. A fourth, `search_term_batch`, is the
-reference's flat term scorer (`ops/flat_scorer.py`): kernel K7's store
-form (`ops/dense_flat.py`) and a per-query merge tail. A
-fifth is the reference's per-segment Block-WAND phrase path
-(`_search_phrase_seg`), which `search_phrase_batch` takes off the card:
-per (segment, field, term count) leader block work lists ->
-`phrase_scorer.dispatch_phrase` -> the per-segment phrase kernel
-(`phrase_scorer.seg_phrase_topk`) with a per-segment merge tail; on the
-card `search_phrase_batch` runs the second chain. All read the same fused
-store.
-In packed mode (`mode="packed"`, the reference's) no fused store is built:
-`search_term_batch` runs the flat scorer's packed form, kernel K5 over each
-(segment, field)'s bit-packed mirror (`ops/packed_flat.py`), and
-`search_batch` routes as the reference does with its fused chain off; the
-dense-only paths raise.
-Single-term phrase-prefixes expand into term sub-queries on the first
-chain. Sloppy phrases, phrases on fields without positions, phrases longer
-than `PHRASE_T_MAX` and every other query type run on the host engine, as
-in the reference; phrase-family queries among them are counted in
+  kernel (K1) and the merge tail;
+* the fused phrase chain, for slop-0 phrases and multi-term
+  phrase-prefixes: `_search_phrase_fused` ->
+  `fused_phrase.launch_fused_phrase` -> `fused_phrase_topk` -> the
+  position-probe kernel (K2) and the merge tail;
+* the reference's per-segment Block-WAND boolean path: per (segment,
+  field, clause bucket) work lists -> `probe_scorer.dispatch_probe` -> the
+  windowed-probe kernel (K3, `bool_probe.bool_probe_topk`) or the deep
+  per-lane probe (K4), each with a per-segment merge tail;
+* `search_term_batch`, the reference's flat term scorer
+  (`ops/flat_scorer.py`): kernel K7's store form (`ops/dense_flat.py`);
+* the reference's per-segment Block-WAND phrase path
+  (`_search_phrase_seg`): per (segment, field, term count) leader block
+  work lists -> `phrase_scorer.dispatch_phrase` -> the per-segment phrase
+  kernel (K6, `phrase_scorer.seg_phrase_topk`) with a per-segment merge
+  tail.
+All read the same fused store. Which chain a method takes depends on the
+executor's route alone, never on its device:
+* `fused=True`, the reference's Pallas mode (the dense default):
+  `search_batch` sends term, boosted-term and boolean(term) queries (and
+  dismax over terms with tie_breaker 0 and single-term phrase-prefixes,
+  both expanded into term sub-queries) to the fused boolean chain, and
+  slop-0 phrases and multi-term phrase-prefixes to the fused phrase chain;
+  `search_boolean_batch` and `search_phrase_batch` run the fused chains;
+* `fused=False`, the reference's XLA mode (`_search_batch_segment`):
+  `search_batch` sends plain term queries to `search_term_batch` (K7),
+  one-field booleans to the per-segment boolean path (K3, K4) and slop-0
+  phrases to the per-segment phrase path (K6), and expands nothing;
+  `search_boolean_batch` runs the per-segment boolean path (queries whose
+  clauses span fields the fused boolean chain inside the same call) and
+  `search_phrase_batch` the per-segment phrase path (multi-term
+  phrase-prefixes the fused phrase chain inside the same call).
+In packed mode (`mode="packed"`, the reference's) no fused store is built
+and the route is `fused=False`: `search_term_batch` runs the flat scorer's
+packed form, kernel K5 over each (segment, field)'s bit-packed mirror
+(`ops/packed_flat.py`), and a batch that would reach a dense-only path
+raises.
+Sloppy phrases, phrases on fields without positions, phrases longer than
+`PHRASE_T_MAX` and every other query type run on the host engine, as in
+the reference; phrase-family queries among them are counted in
 `host_routed`.
 
 Around them: `search_batches` keeps several batches in flight (a CUDA
@@ -60,11 +74,14 @@ from ..utils.trace import debug_time
 
 NEG_INF = np.float32(-np.inf)
 
-#: the kernels each mode runs (`prewarm` loads these)
-_MODE_KERNELS = {
-    "dense": ("group_probe", "phrase_probe", "bool_probe", "deep_probe",
-              "seg_phrase", "dense_flat"),
-    "packed": ("packed_flat",),
+#: the kernels `prewarm` loads, by (mode, fused): the route's and, on the
+#: fused route, the per-segment paths' too
+_ROUTE_KERNELS = {
+    ("dense", True): ("group_probe", "phrase_probe", "bool_probe",
+                      "deep_probe", "seg_phrase", "dense_flat"),
+    ("dense", False): ("bool_probe", "deep_probe", "seg_phrase",
+                       "dense_flat"),
+    ("packed", False): ("packed_flat",),
 }
 
 #: phase-2 threshold-ratchet tuning (per-query units): ratchet when more
@@ -217,6 +234,19 @@ def _phase2_keep(ub, blk_base, seg_ord, th, th_seg, th_doc):
     return (ub > th) | ((ub == th) & ~later)
 
 
+def _route(mode: str, fused: bool | None) -> bool:
+    """The executor's routing: True for the fused chains (the reference's
+    Pallas mode), False for the per-segment paths and the flat term scorer
+    (its XLA mode). None picks the fused chains in dense mode; packed mode
+    has none, so `fused=True` there raises."""
+    if fused is None:
+        return mode == "dense"
+    if fused and mode == "packed":
+        raise ValueError("fused=True needs mode='dense': packed mode has no "
+                         "fused chain")
+    return bool(fused)
+
+
 def _device(device) -> torch.device:
     """`device` as a torch device with its index ("cuda" is the current
     card); raises for CUDA where there is none, so nothing silently moves
@@ -241,17 +271,19 @@ class DeviceSearchWarmer:
     prepares for batches like `queries_hint`. The warmed executor is
     stashed on the searcher; `BatchExecutor.for_searcher(searcher)` fetches
     it, so the first batch after a commit pays no upload and no build.
-    `device` defaults to "cuda" and must exist. In packed mode the warmer
-    builds each field's packed mirror on every segment instead of the
-    slabs (the position store is dense-only)."""
+    `device` defaults to "cuda" and must exist; `mode` and `fused` are the
+    executor's. In packed mode the warmer builds each field's packed
+    mirror on every segment instead of the slabs (the position store is
+    dense-only)."""
 
     def __init__(self, fields: list, queries_hint: list | None = None,
                  k: int = 10, with_positions: bool = False, device="cuda",
-                 mode: str = "dense"):
+                 mode: str = "dense", fused: bool | None = None):
         self.fields = list(fields)
         self.queries_hint = queries_hint
         self.k = k
         self.mode = check_mode(mode)
+        self.fused = _route(self.mode, fused)
         if with_positions and mode == "packed":
             raise dense_only("the position store")
         self.with_positions = with_positions
@@ -259,7 +291,8 @@ class DeviceSearchWarmer:
         self._prewarmed = False
 
     def warm(self, searcher) -> None:
-        ex = BatchExecutor(searcher, device=self.device, mode=self.mode)
+        ex = BatchExecutor(searcher, device=self.device, mode=self.mode,
+                           fused=self.fused)
         for seg_ord in range(len(searcher.segment_readers())):
             for f in self.fields:
                 if self.mode == "packed":
@@ -267,9 +300,7 @@ class DeviceSearchWarmer:
                 else:
                     ex._ensure_fused_slab(seg_ord, f)
         if self.mode == "dense":
-            fused = ex._fused().ready()
-            if self.with_positions and fused.slabs:
-                fused.ensure_positions()
+            ex._warm_store(self.with_positions)
         if self.queries_hint and not self._prewarmed:
             ex.prewarm(self.queries_hint, k=self.k)
             self._prewarmed = True
@@ -285,26 +316,36 @@ class BatchExecutor:
     `mode` is the reference's: "dense" (decoded rows in the fused store,
     every device path) or "packed" (bit-packed postings on the device,
     decoded per query; only `search_term_batch` runs on the device, and
-    the dense-only paths raise)."""
+    the dense-only paths raise).
+    `fused` picks the route, as the reference's Pallas mode does: True
+    runs the fused chains (kernels K1 and K2), False the per-segment paths
+    and the flat term scorer (K3, K4, K6 and K7; the module docstring
+    says which method runs what). None means True in dense mode and False
+    in packed mode, which has no fused chain."""
 
     @classmethod
     def for_searcher(cls, searcher: Searcher, device="cuda",
-                     mode: str = "dense") -> "BatchExecutor":
+                     mode: str = "dense",
+                     fused: bool | None = None) -> "BatchExecutor":
         """The searcher's warmed executor when a `DeviceSearchWarmer` on
-        `device` in `mode` ran on this generation (slabs or mirrors and
-        kernels ready), else a new executor on `device` in `mode`."""
+        `device` in `mode` on route `fused` ran on this generation (slabs
+        or mirrors and kernels ready), else a new executor so made."""
         dev = _device(device)
+        fused = _route(check_mode(mode), fused)
         ex = getattr(searcher, "_warm_executor", None)
-        if ex is not None and ex.device == dev and ex.mode == mode:
+        if (ex is not None and ex.device == dev and ex.mode == mode
+                and ex.fused == fused):
             return ex
-        return cls(searcher, device=dev, mode=mode)
+        return cls(searcher, device=dev, mode=mode, fused=fused)
 
     def __init__(self, searcher: Searcher, device="cuda",
-                 mode: str = "dense"):
+                 mode: str = "dense", fused: bool | None = None):
         import threading
 
         self.searcher = searcher
         self.mode = check_mode(mode)
+        #: the route: True the fused chains, False the per-segment paths
+        self.fused = _route(self.mode, fused)
         self.device = dev = _device(device)
         # each reader keeps one mirror per mode (the reference's
         # `_device_for` rebuilds it when the mode changes)
@@ -546,6 +587,10 @@ class BatchExecutor:
             w = np.float32(w * np.float32(boost))
         return w
 
+    def _clause_fields(self, q) -> set:
+        """The fields of a device-eligible boolean's clauses."""
+        return {self._term_clause(sub)[0].term.field for _, sub in q.clauses}
+
     def _bool_device_eligible(self, q) -> bool:
         from ..query import BooleanQuery
 
@@ -560,6 +605,17 @@ class BatchExecutor:
 
     def _fused(self):
         return self._fused_store
+
+    def _warm_store(self, positions: bool) -> None:
+        """Upload the fused store and, with `positions`, build the position
+        store that the route's phrase path reads (the per-segment one also
+        reads each row's position offsets)."""
+        fused = self._fused().ready()
+        if positions and fused.slabs:
+            if self.fused:
+                fused.ensure_positions()
+            else:
+                fused.position_tensors()
 
     def _ensure_fused_slab(self, seg_ord: int, field: str):
         if self.mode == "packed":
@@ -1214,8 +1270,10 @@ class BatchExecutor:
         `probe_scorer.dispatch_probe`: kernel K3 for windowed items, the
         deep per-lane probe for wider ones. The planner is single-field, as
         the reference's: queries whose clauses span fields run the fused
-        chain (`_search_boolean_fused`) inside the same call. Every query
-        must be a device-eligible boolean (term or boosted-term clauses).
+        chain (`_search_boolean_fused`) inside the same call. On the fused
+        route (`fused=True`) the whole batch runs the fused chain, as the
+        reference's does in Pallas mode. Every query must be a
+        device-eligible boolean (term or boosted-term clauses).
         Returns list[list[(score, DocAddress)]]."""
         from ..query import Occur
 
@@ -1231,11 +1289,10 @@ class BatchExecutor:
                 raise ValueError(
                     f"not a device-eligible boolean(term) query: {q!r}"
                 )
-        fields_of = [
-            {self._term_clause(sub)[0].term.field for _, sub in q.clauses}
-            for q in queries
-        ]
-        multi = [i for i, f in enumerate(fields_of) if len(f) > 1]
+        if self.fused:
+            return self._search_boolean_fused(queries, k)
+        multi = [i for i, q in enumerate(queries)
+                 if len(self._clause_fields(q)) > 1]
         if multi:
             out = [None] * Q
             for i, hits in zip(multi, self._search_boolean_fused(
@@ -1579,15 +1636,12 @@ class BatchExecutor:
 
     def search_phrase_batch(self, queries: list, k: int):
         """Batched slop-0 phrase and multi-term phrase-prefix queries on the
-        device. On the card every query runs the fused chain
-        (`_search_phrase_fused`, kernel K2), the reference's own route on
-        its accelerator (its `search_phrase_batch` returns the fused chain
-        in Pallas mode): at 1M docs the per-segment plan lost to it on the
-        bigram log in every run (PERF.md section 6), its host-engine plans
-        for leader blocks above MAX_P taking most of its batch. Elsewhere
-        (the CPU) slop-0 phrases run the per-segment Block-WAND plan
-        (`_search_phrase_seg`, kernel K6's twin), the reference's route off
-        Pallas, and multi-term phrase-prefixes, which that plan does not
+        device. On the fused route (`fused=True`) every query runs the
+        fused chain (`_search_phrase_fused`, kernel K2), as the reference's
+        `search_phrase_batch` does in Pallas mode. On the per-segment route
+        slop-0 phrases run the per-segment Block-WAND plan
+        (`_search_phrase_seg`, kernel K6), the reference's route in XLA
+        mode, and multi-term phrase-prefixes, which that plan does not
         take, the fused chain inside the same call. Every query must be
         device-eligible. Returns list[list[(score, DocAddress)]]."""
         from ..query import PhrasePrefixQuery
@@ -1600,7 +1654,7 @@ class BatchExecutor:
                 raise ValueError(
                     f"not a device-eligible slop-0 phrase query: {q!r}"
                 )
-        if self.device.type == "cuda":
+        if self.fused:
             return self._search_phrase_fused(queries, k)
         prefixes = [i for i, q in enumerate(queries)
                     if type(q) is PhrasePrefixQuery]
@@ -2343,14 +2397,15 @@ class BatchExecutor:
 
     def search_batch(self, queries: list, k: int):
         """Batched top-k search, routed as the reference routes it in
-        Pallas mode. Term, boosted-term and boolean(term) queries (and
-        dismax over terms with tie_breaker 0, and single-term
-        phrase-prefixes, both expanded into term sub-queries) run the fused
-        boolean path; slop-0 phrases and multi-term phrase-prefixes run the
-        fused phrase path. Expansion sub-query results merge by
-        dedup-keep-max. Every other query runs on the host engine; the
-        phrase-family ones among them count in `host_routed`. Packed mode
-        routes as `_search_batch_packed` says.
+        Pallas mode on the fused route (`fused=True`). Term, boosted-term
+        and boolean(term) queries (and dismax over terms with tie_breaker
+        0, and single-term phrase-prefixes, both expanded into term
+        sub-queries) run the fused boolean path; slop-0 phrases and
+        multi-term phrase-prefixes run the fused phrase path. Expansion
+        sub-query results merge by dedup-keep-max. Every other query runs
+        on the host engine; the phrase-family ones among them count in
+        `host_routed`. The per-segment route (`fused=False`, and packed
+        mode) routes as `_search_batch_segment` says.
         Returns list[list[(score, DocAddress)]]."""
         from ..collector import TopDocs
         from ..query import (
@@ -2360,8 +2415,8 @@ class BatchExecutor:
             PhraseQuery,
         )
 
-        if self.mode == "packed":
-            return self._search_batch_packed(queries, k)
+        if not self.fused:
+            return self._search_batch_segment(queries, k)
         n_orig = len(queries)
         results: list = [None] * n_orig
         queries = list(queries)
@@ -2431,31 +2486,49 @@ class BatchExecutor:
                 results[i] = answer(i)
         return results
 
-    def _search_batch_packed(self, queries: list, k: int):
-        """`search_batch` in packed mode, routed as the reference routes it
-        with its fused chain off (`tantivy_tpu/parallel/__init__.py:1589`,
-        Pallas mode off): plain `TermQuery`s run `search_term_batch`;
-        boolean(term) queries on one field and slop-0 phrases would reach
-        the dense-only scorers, so the batch raises; nothing is expanded,
-        and every other query (boosted terms, booleans over several fields,
-        dismax, phrase-prefixes, sloppy phrases, ...) runs on the host
-        engine, the phrase-family ones counted in `host_routed`."""
+    def _search_batch_segment(self, queries: list, k: int):
+        """`search_batch` on the per-segment route, as the reference routes
+        it with its fused chain off (`tantivy_tpu/parallel/__init__.py:1589`,
+        Pallas mode off): plain `TermQuery`s run `search_term_batch` (K7;
+        K5 in packed mode), boolean(term) queries on one field the
+        per-segment boolean path (K3, K4) and slop-0 phrases the
+        per-segment phrase path (K6); nothing is expanded, and every other
+        query (boosted terms, booleans over several fields, dismax,
+        phrase-prefixes, sloppy phrases, ...) runs on the host engine, the
+        phrase-family ones counted in `host_routed`. In packed mode a batch
+        holding a boolean or a phrase of the device paths raises, since
+        their scorers are dense-only."""
         from ..collector import TopDocs
         from ..query import PhrasePrefixQuery, PhraseQuery, TermQuery
 
-        for q in queries:
-            if self._bool_device_eligible(q) and len(
-                    {self._term_clause(s)[0].term.field
-                     for _, s in q.clauses}) == 1:
-                raise dense_only("a boolean(term) query")
-            if self._phrase_device_eligible(q):
-                raise dense_only("a slop-0 phrase query")
+        bool_ids, phrase_ids = [], []
+        for i, q in enumerate(queries):
+            if (self._bool_device_eligible(q)
+                    and len(self._clause_fields(q)) == 1):
+                if self.mode == "packed":
+                    raise dense_only("a boolean(term) query")
+                bool_ids.append(i)
+            elif self._phrase_device_eligible(q):
+                if self.mode == "packed":
+                    raise dense_only("a slop-0 phrase query")
+                phrase_ids.append(i)
         term_ids = [i for i, q in enumerate(queries)
                     if isinstance(q, TermQuery)]
         results: list = [None] * len(queries)
-        for i, hits in zip(term_ids, self.search_term_batch(
-                [queries[i].term for i in term_ids], k)):
-            results[i] = hits
+
+        def put(ids, answers):
+            for i, hits in zip(ids, answers):
+                results[i] = hits
+
+        if term_ids:
+            put(term_ids, self.search_term_batch(
+                [queries[i].term for i in term_ids], k))
+        if bool_ids:
+            put(bool_ids, self.search_boolean_batch(
+                [queries[i] for i in bool_ids], k))
+        if phrase_ids:
+            put(phrase_ids, self.search_phrase_batch(
+                [queries[i] for i in phrase_ids], k))
         for i, q in enumerate(queries):
             if results[i] is None:
                 if isinstance(q, (PhraseQuery, PhrasePrefixQuery)):
@@ -2531,11 +2604,12 @@ class BatchExecutor:
                 levels=(0, 1, 2)):
         """Prepare what batches shaped like `queries_hint` need before the
         first one arrives: the fused slabs of the hint's fields on every
-        segment, the position store when the hint holds phrases, and, on
-        CUDA, every kernel library of the mode (`ops/_build.load`, up to
-        `concurrency` nvcc builds at once), so the first batch pays neither
-        uploads nor builds. In packed mode: the hint's fields' packed
-        mirrors instead of slabs, and no position store.
+        segment, the position store when the hint holds phrases (on the
+        per-segment route with its per-row offsets), and, on CUDA, the
+        kernel libraries of the route (`_ROUTE_KERNELS`, `ops/_build.load`,
+        up to `concurrency` nvcc builds at once), so the first batch pays
+        neither uploads nor builds. In packed mode: the hint's fields'
+        packed mirrors instead of slabs, and no position store.
 
         The reference compiles a grid of Mosaic kernel shapes here (`k` and
         `levels` size that grid). The port's kernels take every shape from
@@ -2568,11 +2642,9 @@ class BatchExecutor:
                 else:
                     self._ensure_fused_slab(seg_ord, f)
         if self.mode == "dense":
-            fused = self._fused().ready()
-            if phrases and fused.slabs:
-                fused.ensure_positions()
+            self._warm_store(phrases)
         if self.device.type == "cuda":
-            kernels = _MODE_KERNELS[self.mode]
+            kernels = _ROUTE_KERNELS[self.mode, self.fused]
             with cf.ThreadPoolExecutor(
                     max_workers=max(1, min(concurrency, len(kernels)))
             ) as pool:

@@ -59,9 +59,11 @@ class ShardedSearcher:
     """Search over an index whose segments are split across `devices`: the
     single-device batched engine per shard (every query `BatchExecutor`
     answers) and one merge of the per-shard top-k on the first device.
-    Shards run one after another."""
+    Shards run one after another. `fused` is every shard executor's route
+    (`BatchExecutor`'s)."""
 
-    def __init__(self, searcher: Searcher, devices: list):
+    def __init__(self, searcher: Searcher, devices: list,
+                 fused: bool | None = None):
         self.searcher = searcher
         self.devices = [_device(d) for d in devices]
         self.n_shards = len(self.devices)
@@ -81,7 +83,7 @@ class ShardedSearcher:
             self._shard_base.append(min(s * chunk, len(readers)))
             self._execs.append(
                 BatchExecutor(_ShardView(searcher, rs),
-                              device=self.devices[s])
+                              device=self.devices[s], fused=fused)
                 if rs else None
             )
 

@@ -314,7 +314,8 @@ def test_launch_rows_match_reference_inputs(wide_index):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_ps, "probe_bool_topk", record)
         jax_par.BatchExecutor(wide_index).search_boolean_batch(queries, 10)
-    port = BatchExecutor(port_searcher(wide_index), device="cpu")
+    port = BatchExecutor(port_searcher(wide_index), device="cpu",
+                         fused=False)
     port.launch_log = []
     port.search_boolean_batch(to_port(queries), 10)
     deep = [rec for rec in port.launch_log if rec["kind"] == "deep"]
@@ -406,9 +407,9 @@ def test_probe_path_launches_the_kernel_on_card(cuda_device, wide_index):
                         minimum_number_should_match=2),
     ])
     searcher = port_searcher(wide_index)
-    want = BatchExecutor(searcher, device="cpu").search_boolean_batch(
-        queries, 10)
-    ex = BatchExecutor(searcher, device="cuda")
+    want = BatchExecutor(searcher, device="cpu",
+                         fused=False).search_boolean_batch(queries, 10)
+    ex = BatchExecutor(searcher, device="cuda", fused=False)
     n0 = dp.launches
     got = ex.search_boolean_batch(queries, 10)
     assert ex.plan_stats["probe_deep"] > 0

@@ -99,7 +99,7 @@ def t(x):
 
 queries = [tt.BooleanQuery.intersection([t("r"), t("a")]),
            tt.BooleanQuery.union([t("h"), t("r")])]
-ex = tt.BatchExecutor(searcher, device="cpu")
+ex = tt.BatchExecutor(searcher, device="cpu", fused=False)
 got = ex.search_boolean_batch(queries, 5)
 for q, hits in zip(queries, got):
     assert hits == searcher.search(q, tt.TopDocs(5)), q
@@ -125,7 +125,7 @@ w.close()
 searcher = index.reader().searcher()
 queries = [tt.PhraseQuery("body", ["a1", "b1"]),
            tt.PhraseQuery("body", ["b1", "a1", "b1"])]
-ex = tt.BatchExecutor(searcher, device="cpu")
+ex = tt.BatchExecutor(searcher, device="cpu", fused=False)
 got = ex.search_phrase_batch(queries, 5)
 for q, hits in zip(queries, got):
     assert hits == searcher.search(q, tt.TopDocs(5)), q

@@ -47,7 +47,7 @@ def deep_corpus():
 def check(searcher, queries, k=10):
     """Port hits == reference hits == host hits; returns the port's
     executor (its launch log on) for counter checks."""
-    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu", fused=False)
     port.launch_log = []
     got = port.search_phrase_batch(to_port(queries), k)
     ref = jax_par.BatchExecutor(searcher).search_phrase_batch(queries, k)
@@ -84,7 +84,7 @@ def test_five_to_seven_terms_pin_the_reference_fault(corpus):
     a column."""
     searcher, _, texts = corpus
     queries = phrases(texts, 2, 5, 51) + phrases(texts, 1, 7, 52)
-    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu", fused=False)
     port.launch_log = []
     got = port.search_phrase_batch(to_port(queries), 10)
     ref = jax_par.BatchExecutor(searcher).search_phrase_batch(queries, 10)
@@ -102,7 +102,7 @@ def test_mixed_term_counts_in_one_batch(corpus):
     count, every query with the host engine's hits."""
     searcher, _, texts = corpus
     queries = [q for n in range(2, 9) for q in phrases(texts, 2, n, 60 + n)]
-    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu", fused=False)
     port.launch_log = []
     got = port.search_phrase_batch(to_port(queries), 10)
     for q, g in zip(queries, got):
@@ -285,7 +285,7 @@ def test_prefixes_run_the_fused_chain(corpus):
                 tt.PhrasePrefixQuery("body", [words[2], words[5], "w"])]
     queries = [plain[0], prefixes[0], plain[1], plain[2], prefixes[1],
                plain[3]]
-    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu", fused=False)
     port.launch_log = []
     got = port.search_phrase_batch(to_port(queries), 10)
     for q, g in zip(queries, got):
@@ -340,7 +340,7 @@ def test_chunks_match_reference_probe(deep_corpus, monkeypatch):
 
     monkeypatch.setattr(ref_ph, "probe_phrase_topk", record)
     jax_par.BatchExecutor(searcher).search_phrase_batch(queries, 7)
-    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu", fused=False)
     port.launch_log = []
     port.search_phrase_batch(to_port(queries), 7)
     recs = port.launch_log
@@ -421,8 +421,8 @@ def test_phrase_path_launches_the_kernel_on_card(corpus):
                       + phrases(texts, 4, 8, 43) + phrases(texts, 3, 5, 44)
                       + phrases(texts, 3, 7, 45))
     psearcher = port_searcher(searcher)
-    want = BatchExecutor(psearcher, device="cpu").search_phrase_batch(
-        queries, 10)
+    want = BatchExecutor(psearcher, device="cpu",
+                         fused=False).search_phrase_batch(queries, 10)
     ex = BatchExecutor(psearcher, device="cuda")
     n0 = ph.launches
     got = ex._search_phrase_seg(queries, 10)

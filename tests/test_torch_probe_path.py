@@ -27,7 +27,7 @@ def t(w, field="body"):
 def check(searcher, queries, k=10):
     """Port hits == reference hits == host hits; returns the port's
     executor (its launch log on) for counter checks."""
-    port = BatchExecutor(port_searcher(searcher), device="cpu")
+    port = BatchExecutor(port_searcher(searcher), device="cpu", fused=False)
     port.launch_log = []
     got = port.search_boolean_batch(to_port(queries), k)
     ref = jax_par.BatchExecutor(searcher).search_boolean_batch(queries, k)
@@ -140,7 +140,8 @@ def test_multi_field_query_runs_the_fused_chain(wide_index, monkeypatch):
         tt.BooleanQuery([(tt.Occur.MUST, t("m", "body")),
                          (tt.Occur.MUST_NOT, t("r", "title"))]),
     ]
-    port = BatchExecutor(port_searcher(wide_index), device="cpu")
+    port = BatchExecutor(port_searcher(wide_index), device="cpu",
+                         fused=False)
     port.launch_log = []
     got = port.search_boolean_batch(to_port(queries), 10)
     kinds = {rec["kind"] for rec in port.launch_log}
@@ -186,8 +187,8 @@ def test_reference_pallas_k3_agrees(monkeypatch):
     queries = [random_bool_query(rng, words) for _ in range(12)]
     ref = jax_par.BatchExecutor(searcher).search_boolean_batch(queries, 10)
     assert k3_calls, "the reference did not reach its Pallas K3"
-    got = BatchExecutor(port_searcher(searcher),
-                        device="cpu").search_boolean_batch(to_port(queries),
-                                                           10)
+    got = BatchExecutor(port_searcher(searcher), device="cpu",
+                        fused=False).search_boolean_batch(to_port(queries),
+                                                          10)
     for q, g, r in zip(queries, got, ref):
         assert bits(g) == bits(r), repr(q)

@@ -34,7 +34,7 @@ def sharded_setup():
 def check(ref, port, queries, got, want_ref, k=10):
     """Sharded port hits == the port's single executor == the reference's
     sharded hits == the host engine, in f32 bits."""
-    single = BatchExecutor(port, device="cpu").search_batch(
+    single = BatchExecutor(port, device="cpu", fused=False).search_batch(
         to_port(queries), k)
     assert len(got) == len(queries)
     for q, g, s, r in zip(queries, got, single, want_ref):
@@ -50,7 +50,7 @@ def t(w):
 def test_sharded_matches_host(sharded_setup):
     ref, port, words = sharded_setup
     terms = [tt.Term.from_field_text("body", w) for w in words]
-    sharded = ShardedSearcher(port, CPU8)
+    sharded = ShardedSearcher(port, CPU8, fused=False)
     assert sum(ex is not None for ex in sharded._execs) == 6
     got = sharded.search_term_batch(to_port(terms), k=10)
     want = JaxSharded(ref, default_mesh()).search_term_batch(terms, k=10)
@@ -74,7 +74,7 @@ def test_sharded_boolean_matches_host(sharded_setup):
         tt.BooleanQuery.union([t(words[0]), t("zzz_missing")]),
         tt.BooleanQuery.intersection([t(words[0]), t("zzz_missing")]),
     ]
-    got = ShardedSearcher(port, CPU8).search_boolean_batch(
+    got = ShardedSearcher(port, CPU8, fused=False).search_boolean_batch(
         to_port(queries), k=10)
     want = JaxSharded(ref, default_mesh()).search_boolean_batch(queries, 10)
     check(ref, port, queries, got, want)
@@ -89,7 +89,8 @@ def test_sharded_with_deletes():
     ref = index.reader().searcher()
     port = port_searcher(index)
     terms = [tt.Term.from_field_text("body", w_) for w_ in words[:6]]
-    got = ShardedSearcher(port, CPU8).search_term_batch(to_port(terms), 10)
+    got = ShardedSearcher(port, CPU8, fused=False).search_term_batch(
+        to_port(terms), 10)
     want = JaxSharded(ref, default_mesh()).search_term_batch(terms, 10)
     check(ref, port, [tt.TermQuery(x) for x in terms], got, want)
 
@@ -104,7 +105,7 @@ def test_sharded_boolean_prunes():
         tt.BooleanQuery.union([t(words[i]), t(words[i + 1])])
         for i in range(0, 10, 2)
     ]
-    sharded = ShardedSearcher(port, CPU8)
+    sharded = ShardedSearcher(port, CPU8, fused=False)
     got = sharded.search_boolean_batch(to_port(queries), k=3)
     want = JaxSharded(ref, default_mesh()).search_boolean_batch(queries, 3)
     check(ref, port, queries, got, want, k=3)
@@ -119,7 +120,7 @@ def test_sharded_phrase_matches_host(sharded_setup):
              if i != j]
     rng.shuffle(pairs)
     queries = [tt.PhraseQuery("body", [a, b]) for a, b in pairs[:12]]
-    got = ShardedSearcher(port, CPU8).search_phrase_batch(
+    got = ShardedSearcher(port, CPU8, fused=False).search_phrase_batch(
         to_port(queries), k=10)
     want = JaxSharded(ref, default_mesh()).search_phrase_batch(queries, 10)
     check(ref, port, queries, got, want)
