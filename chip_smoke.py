@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
    card's name and power limit;
-2. build: compiles the seven kernels, group-probe, phrase-probe,
-   windowed-probe, packed flat-scorer, deep-probe, per-segment phrase and
-   dense flat-scorer, from `tantivy_tpu_torch/csrc` with
+2. build: compiles the eight kernels, group-probe, phrase-probe,
+   windowed-probe, packed flat-scorer, deep-probe, per-segment phrase,
+   dense flat-scorer and merge-tail, from `tantivy_tpu_torch/csrc` with
    nvcc into `build/kernels/`, all at once, and prints what ptxas reports
    for each (registers, shared memory, spills) and each kernel's threads,
    shared memory per CTA and CTAs resident per SM
@@ -24,7 +24,12 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    untimed batch of 3- and 4-term phrases from the stream, k = 10, with
    every kernel launch counter reset just before and read just after;
    prints per-suite QPS, p50 batch latency and how many (query, segment)
-   plans the planner sent to the host engine, by reason;
+   plans the planner sent to the host engine, by reason; every merge tail
+   of every path below runs kernel K8 (`ops/merge_tail.py`): on each path
+   that keeps a launch log, K8's launches must equal the merge tails its
+   kernel rounds recorded (under "tail") times its 2 kernels (the
+   records' tail inputs move to the host after each batch, so that the
+   log does not add to the peak device memory);
 4b. segment route: `search_batch` of a second executor on the same index,
    `BatchExecutor(searcher, device="cuda", fused=False)` (the reference's
    XLA-mode routing: term queries on the flat scorer, K7; one-field
@@ -35,8 +40,9 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    phase and read just after; the hits of every timed batch must equal
    the main path's list for list, and per suite K7's launches must equal
    the launch log's flat chunks times its 2 kernels, K3's the planner's
-   launches over its rungs, K4's `probe_deep`, K6's `phrase_seg`, with no
-   K1, K2 or K5 launch; prints per suite QPS and p50 beside the main
+   launches over its rungs, K4's `probe_deep`, K6's `phrase_seg`, K8's
+   the launch log's merge tails times its 2 kernels, with no K1, K2 or K5
+   launch; prints per suite QPS and p50 beside the main
    path's, launches, `host_routed` and host plans by reason; then the
    first SEGMENT_PREFIX_QUERIES queries of the prefix log in one batch (no
    warm batch), which this route sends wholly to the host engine, with no
@@ -147,12 +153,16 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
 8. per batch: the real chunks one timed batch of each suite of both paths
    launched, replayed through their kernel; prints per kernel and suite
    the launches per timed batch, the kernel's device ms over the chunks
-   (torch.profiler's kernel durations), the bytes they must move (K4's
+   (CUDA events around the calls enqueued behind a spin kernel,
+   `_queued_ms`), the bytes they must move (K4's
    and K6's: the 32-byte sectors of the work, whatever a build loads),
    the bound
    (those bytes at the card's memory rate; the kernels do no tensor-core
    work), the share of the bound the kernel reaches and its occupancy
-   (CTAs resident per SM, threads and shared memory per CTA); with
+   (CTAs resident per SM, threads and shared memory per CTA), and for the
+   merge tail (K8) the twin's device ms over the same calls (the torch
+   tail every path ran before K8; torch.profiler's kernel durations, as
+   the host does not get ahead of it); with
    `--baseline NAME=DIR`, every chunk (and each synthetic chunk) also runs
    through the kernels built from the sources in DIR, an earlier tree's
    `tantivy_tpu_torch/csrc`, and their ms and the chunks whose output
@@ -164,8 +174,16 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    the term log through the dense and the packed executor's
    `search_term_batch`, with the engine's host spans and
    `torch.profiler` on; the
-   per-layer breakdown (host span ms, device ms per kernel, idle share)
-   goes to PATH as JSON.
+   per-layer breakdown (host span ms, device ms per kernel, idle share,
+   K8's ms and the sort kernels that remain) goes to PATH as JSON;
+10. merge tails: every merge-tail call of every timed batch of the main
+   path (the fused route: K8's seg form), of the segment route, the probe
+   path and the per-segment phrase path (the `fused=False` route: its
+   rows form) and of the packed executor (rows form) through K8 and its
+   twin on the card, bitwise; then each `kernel_cases.tail_case` at
+   kk = 32 and 128 and k = 1, 10, 40, 128, 200, 1000 and 2000 (the
+   running lists in global scratch) in both forms; prints the
+   calls held and the largest call's kernel and twin ms and bound.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, whose `launches_by_path` gives each kernel's
 launches on every path above that resets the counters (main, segment,
@@ -224,7 +242,15 @@ NO_LIBRARY = ("no single PyTorch call computes a sorted-set probe, BM25 "
               "strict-delta prefix sum, BM25 and per-row top-kk over packed "
               "postings, nor BM25 with each query's top-k over fused-store "
               "or dense rows grouped on the card, in (score desc, doc or flat "
-              "index asc) order (torch.topk does not order ties)")
+              "index asc) order (torch.topk does not order ties), nor each "
+              "query's top-k of a launch's per-row candidates grouped by a "
+              "qid a row, in (score desc, segment, doc asc) order, with the "
+              "keep-max dedup of each query's (segment, doc) addresses "
+              "before the cut: torch.topk takes no groups, orders no ties "
+              "and deduplicates nothing, and torch.unique does not keep a "
+              "max")
+#: the fused chains' merge-tail k at k = K (the planner's k_eff)
+TAIL_FUSED_K = 32
 #: batches in flight in the pipelined pass
 PIPELINE = 3
 #: the suites the sharded pass runs, and its devices (one card: two shards
@@ -408,6 +434,7 @@ def timed_batches(search, qlog, log):
     import torch
 
     spans, pairs, first = [], [], []
+    offload_tails(log)
     for b in range(1, 1 + TIMED_BATCHES):
         batch = qlog[b * BATCH:(b + 1) * BATCH]
         n0 = len(log)
@@ -416,6 +443,7 @@ def timed_batches(search, qlog, log):
         res = search(batch, K)
         torch.cuda.synchronize()
         spans.append(time.perf_counter() - t0)
+        offload_tails(log[n0:])
         pairs.extend(zip(batch, res))
         if b == 1:
             first = log[n0:]
@@ -430,6 +458,7 @@ def launch_counts() -> dict:
         deep_probe,
         dense_flat,
         group_probe,
+        merge_tail,
         packed_flat,
         phrase_probe,
         phrase_scorer,
@@ -441,7 +470,8 @@ def launch_counts() -> dict:
             "packed_flat": packed_flat.launches,
             "deep_probe": deep_probe.launches,
             "seg_phrase": phrase_scorer.launches,
-            "dense_flat": dense_flat.launches}
+            "dense_flat": dense_flat.launches,
+            "merge_tail": merge_tail.launches}
 
 
 def build_kernel(name: str, src_dir: str, tag: str):
@@ -514,6 +544,11 @@ def occupancy(lib, name: str) -> dict:
                         (v.value for v in vals)))
 
     own = f"{name}_occupancy"
+    if name == "merge_tail":
+        # the per-segment tails run at k = K, the fused chains' at their
+        # k_eff (TAIL_FUSED_K at k = K)
+        return {"group": query(own, 2, K), "select_rows": query(own, 0, K),
+                "select_seg": query(own, 1, TAIL_FUSED_K)}
     if name == "phrase_probe":
         return {f"S{s}": query(own, s) for s in (1, 3)}
     if name == "dense_flat":
@@ -533,6 +568,39 @@ def per_batch_launches(before: dict) -> dict:
             for name, n in launch_counts().items() if n != before[name]}
 
 
+def tail_records(log) -> list:
+    """The merge-tail calls of a launch log: each kernel round's record
+    holds its tail's form and inputs under "tail"."""
+    return [rec["tail"] for rec in log if "tail" in rec]
+
+
+def offload_tails(recs) -> None:
+    """Moves the merge-tail inputs that launch-log records `recs` hold on
+    the card to the host (`merge_tail_calls` moves them back for a
+    replay), so that the log does not hold them in device memory."""
+    import torch
+
+    for rec in recs:
+        tail = rec.get("tail")
+        if tail is not None:
+            tail["args"] = tuple(a.cpu() if torch.is_tensor(a) else a
+                                 for a in tail["args"])
+
+
+def check_tail_launches(path: str, launched: int, log) -> int:
+    """K8 launched `launched` times on `path`, whose launch log is `log`:
+    it must be the log's merge tails times K8's kernels a call. Returns
+    the tails."""
+    from tantivy_tpu_torch.ops import merge_tail
+
+    n = len(tail_records(log))
+    if launched != n * merge_tail.KERNELS_PER_CALL:
+        raise AssertionError(f"{path}: merge_tail launched {launched} times "
+                             f"for {n} merge tails of "
+                             f"{merge_tail.KERNELS_PER_CALL} kernels")
+    return n
+
+
 def run_main_path(executor, logs, long_batch, n_seg: int):
     """One warm batch per suite, then TIMED_BATCHES fresh batches, then the
     untimed batch of longer phrases; returns per-suite timings, with the
@@ -544,6 +612,7 @@ def run_main_path(executor, logs, long_batch, n_seg: int):
         executor.search_batch(qlog[:BATCH], K)
         before = dict(executor.fallbacks)
         counts0 = launch_counts()
+        n0 = len(executor.launch_log)
         qps, p50_ms, pairs, batch_log = timed_batches(
             executor.search_batch, qlog, executor.launch_log
         )
@@ -560,6 +629,7 @@ def run_main_path(executor, logs, long_batch, n_seg: int):
             "plans": len(pairs) * n_seg,
             "launches_per_batch": per_batch_launches(counts0),
             "batch_log": batch_log,
+            "tails": tail_records(executor.launch_log[n0:]),
         }
         answered[suite] = pairs
     answered["phrase34"] = list(
@@ -589,6 +659,7 @@ def run_probe_path(executor, logs, n_seg: int):
         fb0 = sum(executor.fallbacks.values())
         stats0 = dict(executor.plan_stats)
         counts0 = launch_counts()
+        n0 = len(executor.launch_log)
         qps, p50_ms, pairs, batch_log = timed_batches(
             executor.search_boolean_batch, qlog, executor.launch_log
         )
@@ -606,6 +677,7 @@ def run_probe_path(executor, logs, n_seg: int):
             "plans": len(pairs) * n_seg,
             "launches_per_batch": per_batch_launches(counts0),
             "batch_log": batch_log,
+            "tails": tail_records(executor.launch_log[n0:]),
         }
         answered[f"probe_{suite}"] = pairs
     return timing, answered
@@ -625,6 +697,7 @@ def run_phrase_seg(executor, logs, long_log, n_seg: int):
         fb0 = dict(executor.fallbacks)
         stats0 = dict(executor.plan_stats)
         counts0 = launch_counts()
+        n0 = len(executor.launch_log)
         qps, p50_ms, pairs, batch_log = timed_batches(
             executor.search_phrase_batch, qlog, executor.launch_log
         )
@@ -640,6 +713,7 @@ def run_phrase_seg(executor, logs, long_log, n_seg: int):
             "plans": len(pairs) * n_seg,
             "launches_per_batch": per_batch_launches(counts0),
             "batch_log": batch_log,
+            "tails": tail_records(executor.launch_log[n0:]),
         }
         answered[suite] = pairs
     return timing, answered
@@ -651,7 +725,8 @@ def run_segment_route(executor, logs, answered, n_seg: int):
     The hits of every timed batch must equal the main path's (`answered`)
     list for list, and each suite's timed batches must launch K7 twice a
     flat chunk, K3 once a planned windowed chunk, K4 once a planned deep
-    chunk, K6 once a planned per-segment phrase chunk and no other kernel.
+    chunk, K6 once a planned per-segment phrase chunk, K8 twice a merge
+    tail of the launch log and no other kernel.
     Then the first SEGMENT_PREFIX_QUERIES queries of the prefix log in one
     batch, with no warm batch, which must all run on the host engine with
     no launch. Returns per-suite timings, with launches, the planner's
@@ -659,7 +734,7 @@ def run_segment_route(executor, logs, answered, n_seg: int):
     batch's seconds, and the (query, hits) pairs of the timed batches."""
     import torch
 
-    from tantivy_tpu_torch.ops import dense_flat
+    from tantivy_tpu_torch.ops import dense_flat, merge_tail
 
     timing, seg_answered = {}, {}
     for suite in SEGMENT_SUITES:
@@ -679,11 +754,13 @@ def run_segment_route(executor, logs, answered, n_seg: int):
         launched = {name: n - counts0[name]
                     for name, n in launch_counts().items()}
         flat = sum(rec["kind"] == "flat" for rec in executor.launch_log[n0:])
+        tails = tail_records(executor.launch_log[n0:])
         k3_by_kw = {kw: planned(f"probe_kw{kw}") for kw in PROBE_RUNGS}
         want = {"dense_flat": flat * dense_flat.KERNELS_PER_CALL,
                 "bool_probe": sum(k3_by_kw.values()),
                 "deep_probe": planned("probe_deep"),
-                "seg_phrase": planned("phrase_seg")}
+                "seg_phrase": planned("phrase_seg"),
+                "merge_tail": len(tails) * merge_tail.KERNELS_PER_CALL}
         want = {name: want.get(name, 0) for name in launched}
         if launched != want:
             raise AssertionError(f"segment {suite}: launched {launched}, "
@@ -699,6 +776,7 @@ def run_segment_route(executor, logs, answered, n_seg: int):
                                    for name, n in launched.items() if n},
             "k3_by_kw": k3_by_kw,
             "flat_chunks": flat,
+            "tails": tails,
             "host_routed": executor.host_routed - routed0,
             "host_by_reason": {
                 why: n - fb0.get(why, 0)
@@ -858,8 +936,8 @@ def run_packed_term_batches(searcher, logs, dense_pairs, seed: int) -> dict:
     filled the dense executor's over the same log, so both time the same
     host work. Hits must equal the dense term batches' (`dense_pairs`)
     list for list, and sampled hits the host engine's. Returns the
-    timings, the executor, the K5 calls of the first timed batch and the
-    mirror's size."""
+    timings, the executor, its launch log, the K5 calls of the first timed
+    batch, the merge tails of the timed batches and the mirror's size."""
     import torch
 
     import tantivy_tpu_torch as tt
@@ -876,10 +954,11 @@ def run_packed_term_batches(searcher, logs, dense_pairs, seed: int) -> dict:
     for b in range(1, 1 + TIMED_BATCHES):
         executor.search_term_batch(terms[b * BATCH:(b + 1) * BATCH], K)
     n0 = packed_flat.launches
+    n_log = len(executor.launch_log)
     qps, p50_ms, pairs, batch_log = timed_batches(
         executor.search_term_batch, terms, executor.launch_log)
     per_batch = (packed_flat.launches - n0) / TIMED_BATCHES
-    executor.launch_log = None
+    log, executor.launch_log = executor.launch_log, None
     if len(pairs) != len(dense_pairs) or not all(
             _same_hits(g, w) for (_, g), (_, w) in zip(pairs, dense_pairs)):
         raise AssertionError("packed term batch: hits differ from the dense "
@@ -897,6 +976,7 @@ def run_packed_term_batches(searcher, logs, dense_pairs, seed: int) -> dict:
     return {"qps": qps, "p50_ms": p50_ms, "warm_s": warm_s,
             "launches_per_batch": per_batch, "executor": executor,
             "batch_log": batch_log, "sampled": EXACT_SAMPLE,
+            "log": log, "tails": tail_records(log[n_log:]),
             "mirror_bytes": sum(d.packed_mirror("body", executor.device).nbytes
                                 for d in dsegs),
             "blocks": sum(d.field_postings("body").num_blocks for d in dsegs),
@@ -1278,12 +1358,21 @@ def dense_flat_calls(args):
 
 
 def dense_rows_call(args):
-    """K7's row stage and the torch merge tail on one logged flat chunk
-    (`flat_scorer.flat_topk_rows`): the route of k > 128, and the whole of
-    K7 before it computed each query's top-k."""
-    from tantivy_tpu_torch.ops.flat_scorer import flat_topk_rows
+    """K7's row stage and the torch merge tail (K8's twin) on one logged
+    flat chunk: the whole of K7 before it computed each query's top-k, and
+    the route of k > 128 (`flat_scorer.flat_topk_rows`) before K8 took its
+    tail."""
+    from tantivy_tpu_torch.ops.dense_flat import MAX_K, dense_flat_rows_store
+    from tantivy_tpu_torch.ops.merge_tail import twin
 
-    return lambda: _unpacked(flat_topk_rows(*args))
+    cstore, rows, qids, weights, k, num_queries = args
+
+    def call():
+        sc, dc = dense_flat_rows_store(cstore, rows, qids, weights,
+                                       kk=min(k, MAX_K))
+        return _unpacked(twin(sc, dc, None, qids, k, num_queries))
+
+    return call
 
 
 def dense_cache_calls(args, k: int, num_queries: int):
@@ -1341,6 +1430,36 @@ def seg_phrase_calls(rec, rows=None):
               kw=rec["kw"], pw=rec["pw"], n_iters=rec["n_iters"])
     return (lambda: seg_phrase(*args, **kw),
             lambda: seg_phrase_ref(*args, **kw))
+
+
+def merge_tail_calls(args):
+    """(kernel, twin) no-argument calls of kernel K8 on one logged merge
+    tail (a record's "tail" args: row_sc, row_doc, row_seg or None, qid,
+    k, num_queries, on the card or the host), both on the card; each
+    returns the packed result."""
+    import torch
+
+    from tantivy_tpu_torch.ops import merge_tail
+
+    args = tuple(a.cuda() if torch.is_tensor(a) else a for a in args)
+    sc, dc, seg, qid, k, num_queries = args
+    if seg is None:
+        kern = lambda: merge_tail.topk_from_rows(  # noqa: E731
+            sc, dc, qid, k, num_queries)
+    else:
+        kern = lambda: merge_tail.topk_rows_seg(  # noqa: E731
+            sc, dc, seg, qid, k, num_queries)
+    return kern, lambda: merge_tail.twin(*args)
+
+
+def merge_tail_bytes(args) -> int:
+    """The bytes one K8 call must move: its candidates (score and doc),
+    a qid a row (and a segment a row in the seg form) read once, the
+    packed result written once."""
+    sc, _, seg, _, k, num_queries = args
+    W, kk = sc.shape
+    planes = 2 if seg is None else 3
+    return W * kk * 8 + W * 4 * (planes - 1) + num_queries * k * 4 * planes
 
 
 # -- the least bytes each kernel must move ------------------------------
@@ -1773,6 +1892,8 @@ def dense_cache_bytes(args, k: int, num_queries: int) -> int:
 
 
 def _rounded(v):
+    if v is None or isinstance(v, str):
+        return v
     if isinstance(v, dict):
         return {k: _rounded(x) for k, x in v.items()}
     if isinstance(v, (bool, list)):
@@ -1786,7 +1907,12 @@ def bound_ms(n_bytes: int) -> float:
 
 def chunk_work(rec):
     """(kernel name, kernel call, bytes, the call an earlier build of the
-    kernel runs) for each chunk of one launch record."""
+    kernel runs) for each chunk of one launch record, and for its merge
+    tail (K8)."""
+    if "tail" in rec:
+        args = rec["tail"]["args"]
+        call = merge_tail_calls(args)[0]
+        yield ("merge_tail", call, merge_tail_bytes(args), call)
     if rec["kind"] == "bool":
         for rows, _, _ in rec["chunks"]:
             call = group_calls(rec, rows)[0]
@@ -1903,6 +2029,37 @@ def _single_ms(calls, reps: int = 20) -> Reading:
     return Reading(sum(_time_ms(fn, reps) for fn in calls), "cuda_events")
 
 
+def _queued_ms(calls, reps: int = 3, attempts: int = 4):
+    """Device time of one pass over `calls` from CUDA events around `reps`
+    passes enqueued behind a spin kernel (`torch.cuda._sleep`): the host
+    enqueues every call while the card spins, so the events time the
+    calls' kernels back to back, not the host's work between them. A
+    reading counts only if the start event had not yet fired when the last
+    call was enqueued; else the spin grows fourfold and the passes run
+    again. Returns None when no attempt hid the host's enqueueing."""
+    import torch
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    cycles = 50_000_000
+    for _ in range(attempts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        end.record()
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    return None
+
+
 def _reading_text(ms: Reading) -> str:
     if ms.source == "profiler":
         return f"{ms:.4f} ms device time"
@@ -1948,7 +2105,8 @@ def occupancy_text(occ: dict) -> str:
 def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
     """Per kernel and suite: the real chunks of one timed batch replayed
     through the kernel; the kernel's device ms over the batch's chunks
-    (`_device_ms`, torch.profiler); the bytes the chunks must move, the bound
+    (`_queued_ms`: CUDA events around the calls enqueued behind a spin
+    kernel); the bytes the chunks must move, the bound
     (those bytes at the card's memory rate) and the share of the bound the
     device ms reach, beside the launches per timed batch and the kernel's
     occupancy (`occ`, from `occupancy()`). `baselines` maps a name to
@@ -1956,8 +2114,11 @@ def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
     row stage and the torch merge, the calls an earlier build has), timed
     between two passes of the current kernel (whose ms is the mean of
     both), and the chunks whose output differs from the current kernel's
-    are counted. An entry whose profiler reading was incomplete says so
-    and gives no ms."""
+    are counted. For the merge tail (K8) the twin's device ms over the
+    same calls (the torch tail every path ran before K8) stands beside,
+    from `_device_ms` (torch.profiler): the host does not get ahead of
+    the torch tail, so a spin kernel cannot hide its enqueueing. An entry
+    whose reading is incomplete says so and gives no ms."""
     out = {}
     for suite, tm in timings.items():
         work = {}
@@ -1971,26 +2132,33 @@ def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
         for name, w in work.items():
             calls, n_bytes = w["calls"], w["bytes"]
             wants = [call() for call in calls]
-            first = _device_ms(calls)
+            first = _queued_ms(calls)
             base_ms, differs = {}, {}
             for tag, libs in baselines.items():
                 if libs.get(name) is None:
                     continue
                 with kernel_lib(name, libs[name]):
-                    base_ms[tag] = _device_ms(w["base"])
+                    base_ms[tag] = _queued_ms(w["base"])
                     differs[tag] = sum(not _same(call(), want)
                                        for call, want in zip(w["base"],
                                                              wants))
             ms = first
             if base_ms:
-                second = _device_ms(calls)
+                second = _queued_ms(calls)
                 ms = None if None in (first, second) else (first + second) / 2
             b = bound_ms(n_bytes)
+            twin = {}
+            if name == "merge_tail":
+                # the torch tail every path ran before K8, on the same calls
+                twin = {"twin_ms": _device_ms(
+                    [merge_tail_calls(t["args"])[1]
+                     for t in tail_records(tm["batch_log"])])}
             rec = {
                 "launches_per_batch": tm["launches_per_batch"].get(name, 0),
                 "chunks": len(calls), "bytes": n_bytes, "bound_ms": b,
                 **({"ms": ms, "share": b / ms} if ms is not None
                    else {"incomplete": True}),
+                **twin,
                 **({"baseline_ms": {tag: v for tag, v in base_ms.items()
                                     if v is not None},
                     "baseline_incomplete": [tag for tag, v in base_ms.items()
@@ -2002,6 +2170,9 @@ def batch_kernel_times(timings: dict, baselines: dict, occ: dict) -> dict:
                            "differ)" for tag, bms in base_ms.items())
             share = (f"share of bound {b / ms:.4f}" if ms is not None
                      else "share of bound incomplete")
+            if twin:
+                base = (f"; twin (the torch tail) {_ms_text(twin['twin_ms'])} "
+                        f"device time (torch.profiler){base}")
             print(f"per batch {name} {suite}: "
                   f"{tm['launches_per_batch'].get(name, 0):.1f} launches per "
                   f"timed batch, {len(calls)} chunks replayed: kernel "
@@ -2126,6 +2297,82 @@ def hard_cases_vs_twin() -> None:
             print(f"kernel==twin {name}: W={len(case['rows'])} finite "
                   f"slots store form {head[1]}, cache form {n_cache}, "
                   "bitwise equal")
+
+
+def _compare_packed(name, kernel, twin):
+    """Run `kernel` and `twin` (no-argument calls returning a packed
+    [2 or 3, Q, k] int32 result) once each; they must be equal word for
+    word. Returns the largest score difference (0.0) and the number of
+    finite slots."""
+    import torch
+
+    got, want = kernel(), twin()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{name}: {bad} kernel words differ from the "
+                             "twin")
+    fin = torch.isfinite(want[0].view(torch.float32))
+    return 0.0, int(fin.sum())
+
+
+def merge_tail_vs_twin(groups: dict) -> dict:
+    """Phase 10: every merge-tail call of `groups` ({path: the tail
+    records of its timed batches}) through K8 and its twin, bitwise; then
+    each `kernel_cases.tail_case` at kk = 32 and 128, k = 1, 10, 40, 128,
+    200, 1000 and 2000, in both forms. Returns the record of the kernels
+    line: the largest call's kernel ms (`_single_ms`), twin ms (CUDA
+    events) and bound, and the calls held per path and form."""
+    import torch
+
+    from tantivy_tpu_torch.ops import kernel_cases as kc
+    from tantivy_tpu_torch.ops import merge_tail
+
+    held, big = {}, None
+    for path, recs in groups.items():
+        if not recs:
+            raise AssertionError(f"merge tails: the {path} path made no "
+                                 "merge-tail call")
+        for i, rec in enumerate(recs):
+            kern, twin = merge_tail_calls(rec["args"])
+            _compare_packed(f"merge_tail {path} call {i} ({rec['form']} "
+                            "form)", kern, twin)
+            key = f"{path} {rec['form']}"
+            held[key] = held.get(key, 0) + 1
+            n_bytes = merge_tail_bytes(rec["args"])
+            if big is None or n_bytes > big[0]:
+                big = (n_bytes, rec)
+    n_bytes, rec = big
+    kern, twin = merge_tail_calls(rec["args"])
+    W, kk = rec["args"][0].shape
+    ms, twin_ms = _single_ms([kern], 20), _time_ms(twin, 3)
+    print(f"kernel==twin merge_tail: {sum(held.values())} calls of the "
+          f"timed batches bitwise equal ({held}); largest call "
+          f"({rec['form']} form, W={W}, kk={kk}, k={rec['args'][4]}): "
+          f"kernel {_reading_text(ms)}, twin {twin_ms:.3f} ms, bound "
+          f"{bound_ms(n_bytes):.4f} ms")
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a.view(np.int32) if a.dtype == np.uint32 else a)).cuda()
+
+    for kind in kc.TAIL_KINDS:
+        for kk in (32, 128):
+            case = kc.tail_case(kind, kk=kk)
+            head = (dev(case["row_sc"]), dev(case["row_doc"]))
+            qid, Q = dev(case["qid"]), case["num_queries"]
+            for form in ("rows", "seg"):
+                seg = dev(case["row_seg"]) if form == "seg" else None
+                for k in (1, 10, 40, 128, 200, 1000, 2000):
+                    name = (f"merge_tail hard case {kind} {form} form "
+                            f"kk={kk} k={k}")
+                    _, n_fin = _compare_packed(name, *merge_tail_calls(
+                        (*head, seg, qid, k, Q)))
+                    print(f"kernel==twin {name}: W={case['qid'].shape[0]} "
+                          f"finite slots {n_fin}, bitwise equal")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": twin_ms,
+            "bound_ms": bound_ms(n_bytes), "calls_held": held,
+            "kernels_per_call": merge_tail.KERNELS_PER_CALL}
 
 
 def group_probe_vs_twin(log, baselines: dict) -> dict:
@@ -2330,8 +2577,10 @@ def profile_layers(executor, seg_executor, packed_executor, stream,
     another with the engine's host spans (`tantivy_tpu_torch.utils.trace`) and
     `torch.profiler` on. Device time is the sum of the CUDA kernels' and
     copies' own time (overlap between streams would count twice); idle
-    share is one minus device time over the traced wall time. Writes the
-    breakdown as JSON to `path`."""
+    share is one minus device time over the traced wall time; the merge
+    tails' kernel K8 and the sort kernels that remain are summed apart,
+    and the main path's suites (the fused chains) may run no sort kernel.
+    Writes the breakdown as JSON to `path`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2383,24 +2632,28 @@ def profile_layers(executor, seg_executor, packed_executor, stream,
             raise AssertionError(f"profile {suite}: torch.profiler recorded "
                                  "no device time")
         busy = sum(device.values())
-        if suite == "term_batch":
-            sorts = [name for name in device if "sort" in name.lower()]
-            if sorts:
-                raise AssertionError(f"profile term_batch: the dense term "
-                                     f"batch at k={K} ran sort kernels "
-                                     f"{sorts}")
+        sorts = {name: ms for name, ms in device.items()
+                 if "sort" in name.lower()}
+        if sorts and (suite == "term_batch" or suite in logs):
+            raise AssertionError(f"profile {suite}: the batch at k={K} ran "
+                                 f"sort kernels {sorts}")
         out[suite] = {
             "untraced_ms": untraced * 1e3,
             "traced_wall_ms": wall * 1e3,
             "device_busy_ms": busy,
             "idle_share": 1 - busy / (wall * 1e3),
             "host_plans": sum(ex.fallbacks.values()) - before,
+            "merge_tail_ms": sum(ms for name, ms in device.items()
+                                 if "merge_tail" in name),
+            "sort_ms": sorts,
             "host_spans_ms": {k: v * 1e3 for k, v in
                               sorted(tracer.span_totals().items())},
             "device_ms": dict(sorted(device.items(), key=lambda kv: -kv[1])),
         }
         print(f"profile {suite}: untraced {untraced * 1e3:.1f} ms, traced "
-              f"{wall * 1e3:.1f} ms, device busy {busy:.3f} ms, idle share "
+              f"{wall * 1e3:.1f} ms, device busy {busy:.3f} ms (merge_tail "
+              f"{out[suite]['merge_tail_ms']:.3f} ms, sorts "
+              f"{sum(sorts.values()):.3f} ms {sorted(sorts)}), idle share "
               f"{out[suite]['idle_share']:.4f}, "
               f"{out[suite]['host_plans']} plans on the host engine")
     with open(path, "w") as f:
@@ -2438,6 +2691,7 @@ def main(argv=None) -> int:
         deep_probe,
         dense_flat,
         group_probe,
+        merge_tail,
         packed_flat,
         phrase_probe,
         phrase_scorer,
@@ -2451,6 +2705,7 @@ def main(argv=None) -> int:
         deep_probe.launches = 0
         phrase_scorer.launches = 0
         dense_flat.reset_counts()
+        merge_tail.reset_counts()
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2503,8 +2758,11 @@ def main(argv=None) -> int:
         executor, logs, long_phrases(stream, args.seed), n_seg
     )
     launches = {"group_probe": group_probe.launches,
-                "phrase_probe": phrase_probe.launches}
+                "phrase_probe": phrase_probe.launches,
+                "merge_tail": merge_tail.launches}
     executor.launch_log, log = [], executor.launch_log
+    main_tails = check_tail_launches("the main path", merge_tail.launches,
+                                     log)
     fused = executor._fused()
     print(f"fused store: cstore {tuple(fused.cstore.shape)} and postore "
           f"{tuple(fused.postore.shape)} int32 on {fused.cstore.device} "
@@ -2515,7 +2773,8 @@ def main(argv=None) -> int:
               f" per {BATCH}-query batch, k={K} ({gpu}); "
               f"{tm['host_plans']} of {tm['plans']} (query, segment) plans "
               f"ran on the host engine {tm['host_by_reason']}")
-    print(f"launches on the main path: {launches}; "
+    print(f"launches on the main path: {launches} (merge_tail: "
+          f"{main_tails} merge tails of the launch log, all of them K8); "
           f"host_routed={executor.host_routed} "
           f"fallbacks={executor.fallbacks}")
     for name, n in launches.items():
@@ -2564,7 +2823,8 @@ def main(argv=None) -> int:
           f"{tuple(seg_store.postore.shape)}; peak device memory with both "
           f"executors' stores {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held now")
-    for name in ("dense_flat", "bool_probe", "deep_probe", "seg_phrase"):
+    for name in ("dense_flat", "bool_probe", "deep_probe", "seg_phrase",
+                 "merge_tail"):
         if by_path["segment"][name] == 0:
             raise AssertionError(f"the segment route launched no {name} "
                                  "kernel")
@@ -2578,11 +2838,14 @@ def main(argv=None) -> int:
     probe_timing, probe_answered = run_probe_path(seg, logs, n_seg)
     launches["bool_probe"] = bool_probe.launches
     launches["deep_probe"] = deep_probe.launches
+    probe_tail_launches = merge_tail.launches
     probe_rungs = {kw: seg.plan_stats.get(f"probe_kw{kw}", 0)
                    - stats0.get(f"probe_kw{kw}", 0) for kw in PROBE_RUNGS}
     probe_deep = (seg.plan_stats.get("probe_deep", 0)
                   - stats0.get("probe_deep", 0))
     seg.launch_log, probe_log = None, seg.launch_log
+    probe_tails = check_tail_launches("the probe path", probe_tail_launches,
+                                      probe_log)
     for suite, tm in probe_timing.items():
         print(f"probe suite {suite}: {tm['qps']:.1f} QPS, p50 "
               f"{tm['p50_ms']:.1f} ms per {BATCH}-query batch, k={K} ({gpu}); "
@@ -2591,7 +2854,8 @@ def main(argv=None) -> int:
               f"(query, segment) plans ran on the host engine")
     print(f"launches on the probe path: bool_probe {launches['bool_probe']} "
           f"(by kw {probe_rungs}), deep_probe {launches['deep_probe']} "
-          f"(plan_stats probe_deep {probe_deep}), group_probe "
+          f"(plan_stats probe_deep {probe_deep}), merge_tail "
+          f"{probe_tail_launches} ({probe_tails} merge tails), group_probe "
           f"{group_probe.launches}, phrase_probe {phrase_probe.launches}; "
           f"peak device memory of the probe path "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2619,7 +2883,9 @@ def main(argv=None) -> int:
     launches["seg_phrase"] = seg_counts["seg_phrase"]
     seg_planned = (seg.plan_stats.get("phrase_seg", 0)
                    - stats0.get("phrase_seg", 0))
-    seg.launch_log = None
+    seg.launch_log, seg_log = None, seg.launch_log
+    seg_tails = check_tail_launches("the per-segment phrase path",
+                                    seg_counts["merge_tail"], seg_log)
     main_phrase = timing["phrase"]
     for suite, tm in seg_timing.items():
         print(f"phrase_seg suite {suite}: {tm['qps']:.1f} QPS, p50 "
@@ -2632,7 +2898,8 @@ def main(argv=None) -> int:
               f"segment) plans ran on the host engine, by reason "
               f"{tm['host_by_reason']}")
     print(f"launches on the per-segment phrase path: {seg_counts} "
-          f"(planner's phrase_seg launches {seg_planned}); peak device "
+          f"(planner's phrase_seg launches {seg_planned}, {seg_tails} merge "
+          f"tails); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if launches["seg_phrase"] == 0:
         raise AssertionError("the per-segment phrase path launched no "
@@ -2640,7 +2907,8 @@ def main(argv=None) -> int:
     if launches["seg_phrase"] != seg_planned:
         raise AssertionError(f"seg_phrase launched {launches['seg_phrase']} "
                              f"times, the planner counted {seg_planned}")
-    others = {n: c for n, c in seg_counts.items() if c and n != "seg_phrase"}
+    others = {n: c for n, c in seg_counts.items()
+              if c and n not in ("seg_phrase", "merge_tail")}
     if others:
         raise AssertionError(f"the per-segment phrase path launched {others}")
     if [bits(h) for _, h in seg_answered["phrase_seg"]] != [
@@ -2650,32 +2918,36 @@ def main(argv=None) -> int:
     print("phrase_seg: hits of the timed batches equal the main path's "
           "phrase suite list for list")
     # search_phrase_batch's route on the card, on each executor: the fused
-    # chain (K2) on the fused route, the per-segment plan (K6) on the other
+    # chain (K2) on the fused route, the per-segment plan (K6) on the other,
+    # each with its merge tails (K8)
     for ex, route, kernel in ((executor, "fused", "phrase_probe"),
                               (seg, "fused=False", "seg_phrase")):
         zero_counts()
         routed = ex.search_phrase_batch(logs["phrase"][BATCH:2 * BATCH], K)
         routed_counts = {n: c for n, c in launch_counts().items() if c}
-        if list(routed_counts) != [kernel]:
+        if sorted(routed_counts) != sorted([kernel, "merge_tail"]):
             raise AssertionError(f"search_phrase_batch on the {route} "
                                  f"executor launched {routed_counts} on the "
-                                 f"card, not {kernel} alone")
+                                 f"card, not {kernel} and merge_tail alone")
         if [bits(h) for h in routed] != [
                 bits(h) for _, h in answered["phrase"][:BATCH]]:
             raise AssertionError(f"search_phrase_batch on the {route} "
                                  "executor: hits differ from the main "
                                  "path's phrase suite")
         print(f"search_phrase_batch on the card, {route} executor: "
-              f"{routed_counts} alone, hits equal the main path's phrase "
-              "suite")
+              f"{routed_counts} alone (with the merge tails), hits equal the "
+              "main path's phrase suite")
 
     check_exact(searcher, {**answered, **seg_route_answered,
                            **probe_answered, **seg_answered}, args.seed)
     by_path.update({"main": {"group_probe": launches["group_probe"],
-                             "phrase_probe": launches["phrase_probe"]},
+                             "phrase_probe": launches["phrase_probe"],
+                             "merge_tail": launches["merge_tail"]},
                     "probe": {"bool_probe": launches["bool_probe"],
-                              "deep_probe": launches["deep_probe"]},
-                    "phrase_seg": {"seg_phrase": launches["seg_phrase"]}})
+                              "deep_probe": launches["deep_probe"],
+                              "merge_tail": probe_tail_launches},
+                    "phrase_seg": {"seg_phrase": launches["seg_phrase"],
+                                   "merge_tail": seg_counts["merge_tail"]}})
 
     def read_counts(path: str, needed) -> None:
         by_path[path] = launch_counts()
@@ -2725,8 +2997,11 @@ def main(argv=None) -> int:
     zero_counts()
     packed = run_packed_term_batches(searcher, logs, term_batch.pop("pairs"),
                                      args.seed)
-    read_counts("packed_term_batch", ("packed_flat",))
+    read_counts("packed_term_batch", ("packed_flat", "merge_tail"))
     launches["packed_flat"] = by_path["packed_term_batch"]["packed_flat"]
+    packed_tails = check_tail_launches(
+        "the packed term batches",
+        by_path["packed_term_batch"]["merge_tail"], packed.pop("log"))
     packed.update(packed_flat_vs_twin(packed["batch_log"]))
     cstore_bytes = fused.cstore.numel() * fused.cstore.element_size()
     print(f"packed term batch: {packed['qps']:.1f} QPS, p50 "
@@ -2744,7 +3019,8 @@ def main(argv=None) -> int:
           f"{packed['sampled']} sampled queries the host engine; first warm "
           f"batch, the mirrors' upload included, {packed['warm_s']:.2f} s; "
           f"launches "
-          f"{by_path['packed_term_batch']}")
+          f"{by_path['packed_term_batch']} (merge_tail: {packed_tails} merge "
+          f"tails)")
     print(f"packed mirror: {packed['mirror_bytes']} bytes on the card for "
           f"`body` over {packed['segments']} segments, "
           f"{packed['mirror_bytes'] / packed['blocks']:.1f} B per 128-doc "
@@ -2839,7 +3115,9 @@ def main(argv=None) -> int:
         **seg_timing,
         "packed_term": {"batch_log": packed["batch_log"],
                         "launches_per_batch": {
-                            "packed_flat": packed["launches_per_batch"]}},
+                            "packed_flat": packed["launches_per_batch"],
+                            "merge_tail": len(packed["tails"])
+                            * merge_tail.KERNELS_PER_CALL / TIMED_BATCHES}},
         "dense_term": {"batch_log": term_batch["batch_log"],
                        "launches_per_batch": {
                            "dense_flat": term_batch["launches_per_batch"]}},
@@ -2848,6 +3126,13 @@ def main(argv=None) -> int:
     if args.profile:
         profile_layers(executor, seg, packed["executor"], stream, args.seed,
                        args.profile)
+    # 10. every merge tail of the timed batches through K8 and its twin
+    stats["merge_tail"] = merge_tail_vs_twin({
+        "fused route": [r for tm in timing.values() for r in tm["tails"]],
+        "fused=False route": [
+            r for tm in (*seg_route.values(), *probe_timing.values(),
+                         *seg_timing.values()) for r in tm["tails"]],
+        "packed executor": packed["tails"]})
 
     replaces = {"group_probe": "tantivy_tpu/ops/pallas_probe.py:533",
                 "phrase_probe": "tantivy_tpu/ops/pallas_phrase.py:98",
@@ -2857,7 +3142,9 @@ def main(argv=None) -> int:
                 "deep_probe": "tantivy_tpu/ops/probe_scorer.py:398",
                 "seg_phrase": "tantivy_tpu/ops/phrase_scorer.py:71",
                 "dense_flat": "tantivy_tpu/ops/term_scorer.py:25 + "
-                              "tantivy_tpu/ops/flat_scorer.py:43"}
+                              "tantivy_tpu/ops/flat_scorer.py:43",
+                "merge_tail": "tantivy_tpu/ops/probe_scorer.py:120 + "
+                              "tantivy_tpu/ops/probe_scorer.py:178"}
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": [{
         "name": name,

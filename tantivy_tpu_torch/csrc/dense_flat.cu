@@ -40,15 +40,13 @@
 // lane within a query, so the key needs no rank).
 //
 // Two kernels a call, k <= kMaxK (128):
-// 1. group (one CTA of 1,024 threads): a histogram of the qids (shared
-//    memory atomics, one a warp per distinct qid, `__match_any_sync`; a
-//    thread's loads all in flight at once up to 32,768 items), a block
-//    scan into CSR offsets `qptr` [Q + 1] and each query's tiles of up to
-//    kTileRows items (a query with no item has one empty tile), and a
-//    scatter of item indices into `order`, grouped by query. Within a
-//    query the scatter's order is that of its warps' atomics: the tie keys
-//    above do not depend on it. It also zeroes the per-query `done`
-//    counters and shared keys.
+// 1. group (one CTA of 1,024 threads, `qid_group.cuh`, shared with K8): a
+//    histogram of the qids, a block scan into CSR offsets `qptr` [Q + 1]
+//    and each query's tiles of up to kTileRows items (a query with no item
+//    has one empty tile), and a scatter of item indices into `order`,
+//    grouped by query. Within a query the scatter's order is that of its
+//    warps' atomics: the tie keys above do not depend on it. It also
+//    zeroes the per-query `done` counters and shared keys.
 // 2. select (one warp a tile, kSelWarps tiles a CTA): lane i holds the
 //    tile's item i; lane 0 keeps kStages rows in flight, each one TMA bulk
 //    copy (`cp.async.bulk`, 1,536 bytes; the cache form's docs and tfs rows
@@ -90,7 +88,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "qid_group.cuh"
+
 namespace {
+
+using qid_group::lanemask_lt;
 
 constexpr int kLanes = 128;
 constexpr int kLanesPerThread = 4;
@@ -343,10 +345,7 @@ constexpr int kTileRows = 16;  // a tile's items: one a lane
 constexpr int kStages = 4;     // rows in flight a warp
 constexpr int kSelWarps = 4;
 constexpr int kSelThreads = 32 * kSelWarps;
-constexpr int kGroupThreads = 1024;
-constexpr int kGroupUnroll = 8;
-// queries whose counters live in shared memory; more go to scratch
-constexpr int kSharedQ = 8192;
+constexpr int kGroupThreads = qid_group::kThreads;
 constexpr int kStageBytes = kStoreCols * 4;  // the cache form uses 1,024
 constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kCacheBytes = kCacheCols * 4;
@@ -354,19 +353,12 @@ constexpr int kBarBytes = 64;
 constexpr int kCompactBytes = 32 * 16 + 32 * 4;
 
 // Scratch of one call, carved from one buffer (`dense_flat_scratch_bytes`).
-struct Scratch {
+struct Scratch : qid_group::Groups {
   uint4* partial;   // [t_max, k] tile lists of queries of several tiles
-  unsigned long long* qth;  // [Q] best k-th key a tile of the query has
-  int32_t* qptr;    // [Q + 1] item offsets by query
-  int32_t* cursor;  // [Q] counts, then scatter cursors (Q > kSharedQ)
-  int32_t* qtile0;  // [Q + 1] first tile of each query; [Q] = tiles
-  int32_t* done;    // [Q] tiles finished
-  int32_t* order;   // [W] item indices grouped by query
-  int32_t* tile_q;  // [t_max] query of each tile
 };
 
 long long tiles_max(int n_items, int num_queries) {
-  return (long long)n_items / kTileRows + num_queries + 1;
+  return qid_group::tiles_max(n_items, num_queries, kTileRows);
 }
 
 long long scratch_layout(int n_items, int num_queries, int k, char* base,
@@ -395,50 +387,6 @@ long long scratch_layout(int n_items, int num_queries, int k, char* base,
   return off;
 }
 
-__device__ __forceinline__ unsigned lanemask_lt() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
-}
-
-// Exclusive scan of (x, y) over the 1,024 threads of the block; `total`
-// gets the sums. Every thread of the block calls it.
-__device__ int2 block_scan2(int2 v, int2* warp_sums, int2* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int2 inc = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int x = __shfl_up_sync(kFull, inc.x, d);
-    const int y = __shfl_up_sync(kFull, inc.y, d);
-    if (lane >= d) {
-      inc.x += x;
-      inc.y += y;
-    }
-  }
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int2 s = warp_sums[lane];
-    int2 si = s;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int x = __shfl_up_sync(kFull, si.x, d);
-      const int y = __shfl_up_sync(kFull, si.y, d);
-      if (lane >= d) {
-        si.x += x;
-        si.y += y;
-      }
-    }
-    warp_sums[lane] = make_int2(si.x - s.x, si.y - s.y);
-    if (lane == 31) *total = si;
-  }
-  __syncthreads();
-  const int2 base = warp_sums[warp];
-  const int2 out = make_int2(base.x + inc.x - v.x, base.y + inc.y - v.y);
-  __syncthreads();
-  return out;
-}
-
 struct GroupArgs {
   const int32_t* qids;
   int n_items;
@@ -448,84 +396,8 @@ struct GroupArgs {
 
 __global__ void __launch_bounds__(kGroupThreads)
     dense_flat_group_kernel(const GroupArgs a) {
-  __shared__ int32_t s_cnt[kSharedQ];
-  __shared__ int2 warp_sums[32];
-  __shared__ int2 total;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int Q = a.num_queries, W = a.n_items;
-  int32_t* cnt = Q <= kSharedQ ? s_cnt : a.s.cursor;
-  for (int q = tid; q < Q; q += kGroupThreads) cnt[q] = 0;
-  __syncthreads();
-
-  // the histogram: one shared atomic a warp per distinct qid
-  for (int base = 0; base < W; base += kGroupThreads * kGroupUnroll) {
-    int32_t qs[kGroupUnroll];
-#pragma unroll
-    for (int u = 0; u < kGroupUnroll; ++u) {
-      const int i = base + u * kGroupThreads + tid;
-      qs[u] = i < W ? __ldg(a.qids + i) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kGroupUnroll; ++u) {
-      const bool ok = qs[u] >= 0 && qs[u] < Q;
-      const unsigned peers = __match_any_sync(kFull, ok ? qs[u] : -1);
-      if (ok && (peers & lanemask_lt()) == 0) {
-        atomicAdd(cnt + qs[u], __popc(peers));
-      }
-    }
-  }
-  __syncthreads();
-
-  // offsets and tiles
-  int carry_items = 0, carry_tiles = 0;
-  for (int base = 0; base < Q; base += kGroupThreads) {
-    const int q = base + tid;
-    int n = 0, nt = 0;
-    if (q < Q) {
-      n = cnt[q];
-      nt = n > 0 ? (n + kTileRows - 1) / kTileRows : 1;
-    }
-    const int2 ex = block_scan2(make_int2(n, nt), warp_sums, &total);
-    if (q < Q) {
-      const int p = carry_items + ex.x, t0 = carry_tiles + ex.y;
-      a.s.qptr[q] = p;
-      a.s.qtile0[q] = t0;
-      a.s.done[q] = 0;
-      a.s.qth[q] = 0ull;
-      cnt[q] = p;  // from here on the query's scatter cursor
-      for (int j = 0; j < nt; ++j) a.s.tile_q[t0 + j] = q;
-    }
-    carry_items += total.x;
-    carry_tiles += total.y;
-  }
-  if (tid == 0) {
-    a.s.qptr[Q] = carry_items;
-    a.s.qtile0[Q] = carry_tiles;
-  }
-  __syncthreads();
-
-  // the scatter: each warp's items of one qid take consecutive places
-  for (int base = 0; base < W; base += kGroupThreads * kGroupUnroll) {
-    int32_t qs[kGroupUnroll];
-#pragma unroll
-    for (int u = 0; u < kGroupUnroll; ++u) {
-      const int i = base + u * kGroupThreads + tid;
-      qs[u] = i < W ? __ldg(a.qids + i) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kGroupUnroll; ++u) {
-      const bool ok = qs[u] >= 0 && qs[u] < Q;
-      const unsigned peers = __match_any_sync(kFull, ok ? qs[u] : -1);
-      const int leader = __ffs(peers) - 1;
-      int p = 0;
-      if (ok && lane == leader) p = atomicAdd(cnt + qs[u], __popc(peers));
-      p = __shfl_sync(kFull, p, leader);
-      if (ok) {
-        a.s.order[p + __popc(peers & lanemask_lt())] =
-            base + u * kGroupThreads + tid;
-      }
-    }
-  }
+  qid_group::group_by_query<kTileRows>(a.qids, a.n_items, a.num_queries,
+                                       a.s);
 }
 
 // --- shared-memory staging by TMA and mbarriers

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 
 #: the kernel sources, `csrc/<name>.cu`, one library each
 KERNELS = ("group_probe", "phrase_probe", "bool_probe", "packed_flat",
-           "deep_probe", "seg_phrase", "dense_flat")
+           "deep_probe", "seg_phrase", "dense_flat", "merge_tail")
 
 _lock = threading.Lock()
 #: one lock per kernel, so that different kernels build concurrently

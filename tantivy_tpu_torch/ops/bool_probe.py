@@ -37,13 +37,12 @@ import torch
 
 from ..postings.format import TERMINATED
 
+from .merge_tail import topk_from_rows
 from .probe_scorer import (
     T_MAX,
     check_tensor,
     group_topk,
     lane_scores,
-    pack_results,
-    per_query_topk_from_rows,
 )
 
 #: kernel launches since the last reset (the CPU twin does not count);
@@ -240,16 +239,17 @@ def bool_probe(rows, cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
 
 
 def bool_probe_topk(rows, tables, cstore, *, k: int, num_queries: int,
-                    kw: int):
+                    kw: int, rec: dict | None = None):
     """One windowed launch chunk end to end: the kernel (its twin on the
-    CPU) with row top-kk, kk = min(k, 128), then the per-query merge.
-    `tables` = (cl_weight, cl_kind, cl_start, cl_len, cl_shipped, req_must,
-    req_should). Returns packed [2, Q, k] i32 (score bits | doc)."""
+    CPU) with row top-kk, kk = min(k, 128), then the per-query merge
+    (kernel K8's rows form, `merge_tail.topk_from_rows`, which takes
+    `rec`). `tables` = (cl_weight, cl_kind, cl_start, cl_len,
+    cl_shipped, req_must, req_should). Returns packed [2, Q, k] i32 (score
+    bits | doc)."""
     sc, docs = bool_probe(rows, *tables, cstore, kw=kw,
                           num_queries=num_queries, kk=min(k, 128))
-    return pack_results(*per_query_topk_from_rows(
-        sc, docs, rows[:, 1], k, num_queries
-    ))
+    return topk_from_rows(sc, docs, rows[:, 1].contiguous(), k, num_queries,
+                          rec=rec)
 
 
 def _lib() -> ctypes.CDLL:

@@ -31,13 +31,12 @@ import threading
 import torch
 
 from ..postings.format import TERMINATED
+from .merge_tail import topk_from_rows
 from .probe_scorer import (
     T_MAX,
     check_tensor,
     group_topk,
     lane_scores,
-    pack_results,
-    per_query_topk_from_rows,
     probe_term,
 )
 
@@ -155,17 +154,19 @@ def deep_probe(rows, cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
 
 
 def deep_probe_topk(rows, tables, cstore, blk_last, *, k: int,
-                    num_queries: int, n_iters: int):
+                    num_queries: int, n_iters: int,
+                    rec: dict | None = None):
     """One deep launch chunk end to end: the kernel (its twin on the CPU)
-    with item top-kk, kk = min(k, 128), then the per-query merge. `tables`
-    = (cl_weight, cl_kind, cl_start, cl_len, cl_shipped, req_must,
-    req_should). Returns packed [2, Q, k] i32 (score bits | doc)."""
+    with item top-kk, kk = min(k, 128), then the per-query merge (kernel
+    K8's rows form, `merge_tail.topk_from_rows`, which takes `rec`).
+    `tables` = (cl_weight, cl_kind, cl_start, cl_len, cl_shipped,
+    req_must, req_should). Returns packed [2, Q, k] i32 (score bits |
+    doc)."""
     sc, docs = deep_probe(rows, *tables, cstore, blk_last,
                           num_queries=num_queries, kk=min(k, 128),
                           n_iters=n_iters)
-    return pack_results(*per_query_topk_from_rows(
-        sc, docs, rows[:, 1], k, num_queries
-    ))
+    return topk_from_rows(sc, docs, rows[:, 1].contiguous(), k, num_queries,
+                          rec=rec)
 
 
 def _lib() -> ctypes.CDLL:

@@ -36,7 +36,9 @@ Each call launches two kernels, `group` (the items grouped by query on the
 card) and `select` (the per-query top-k); both count in `launches`. For k
 above `MAX_K` the callers take the row stage (`dense_flat_rows_store`,
 `dense_flat_rows_cache`: each row's top-kk of all 128 lanes, one launch)
-and a torch merge; the choice is made from k, before any launch.
+and a merge (the store form's: kernel K8, `merge_tail.topk_from_rows`;
+the cache form's: `cache_merge`, torch); the choice is made from k, before
+any launch.
 """
 
 from __future__ import annotations

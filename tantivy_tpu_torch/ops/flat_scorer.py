@@ -7,7 +7,8 @@ work list of (query, block) pairs and returns the per-query top-k, ordered
 whole of it (BM25 over the work items' store rows and each query's top-k)
 is kernel K7's store form here (`ops/dense_flat.py`, `csrc/dense_flat.cu`)
 for k <= 128. Above that, K7's row stage gives each row's top-128 and the
-packed-key merge tail of `probe_scorer` merges them (`flat_topk_rows`).
+merge tail, kernel K8, merges them (`flat_topk_rows`:
+`merge_tail.topk_from_rows`).
 
 The rows come from the executor's `FusedStore` instead of a second upload
 of the postings. A cstore row holds a block's docs (columns 0:128), tfs
@@ -35,8 +36,8 @@ import numpy as np
 import torch
 
 from .dense_flat import MAX_K, dense_flat_rows_store, dense_flat_store
+from .merge_tail import topk_from_rows
 from .packed_flat import packed_flat_topk
-from .probe_scorer import pack_results, per_query_topk_from_rows
 
 #: work items per launch (the CPU twin gathers [W, 384] rows: 50 MB at
 #: this size)
@@ -54,23 +55,26 @@ def flat_topk(cstore, rows, qid, weights, k: int, num_queries: int):
     return _flat_topk(cstore, rows, qid, weights, k, num_queries)[0]
 
 
-def _flat_topk(cstore, rows, qid, weights, k: int, num_queries: int):
+def _flat_topk(cstore, rows, qid, weights, k: int, num_queries: int,
+               rec: dict | None = None):
     """`flat_topk` and the route it took: "topk" (K7 whole) or "rows" (the
-    row stage and the merge tail)."""
+    row stage and the merge tail, which takes `rec`)."""
     if k <= MAX_K:
         return dense_flat_store(cstore, rows, qid, weights, k=k,
                                 num_queries=num_queries), "topk"
-    return flat_topk_rows(cstore, rows, qid, weights, k, num_queries), "rows"
+    return flat_topk_rows(cstore, rows, qid, weights, k, num_queries,
+                          rec=rec), "rows"
 
 
-def flat_topk_rows(cstore, rows, qid, weights, k: int, num_queries: int):
+def flat_topk_rows(cstore, rows, qid, weights, k: int, num_queries: int,
+                   rec: dict | None = None):
     """`flat_topk` through K7's row stage (each row's top-kk, kk =
     min(k, 128): a query's top-k lies in the union of its rows' top-kk)
-    and the torch merge tail; the route for k above `MAX_K`."""
+    and the merge tail (kernel K8, `merge_tail.topk_from_rows`); the route
+    for k above `MAX_K`."""
     row_sc, row_doc = dense_flat_rows_store(cstore, rows, qid, weights,
                                             kk=min(k, MAX_K))
-    sc, dc = per_query_topk_from_rows(row_sc, row_doc, qid, k, num_queries)
-    return pack_results(sc, dc)
+    return topk_from_rows(row_sc, row_doc, qid, k, num_queries, rec=rec)
 
 
 class _BlockMaxPlanner:
@@ -123,7 +127,8 @@ def dispatch_flat(cstore, rows: np.ndarray, qids: np.ndarray,
     """`flat_topk` over (store row, qid) work items in chunks of `CHUNK`.
     Returns one packed [2, Q, k] tensor per chunk, on `cstore`'s device.
     When `log` is a list, each chunk's exact inputs are appended to it,
-    tagged `kind="flat"`; when `routes` is a dict, each chunk adds one to
+    tagged `kind="flat"` (on the route of k > 128 its merge tail's under
+    the record's "tail"); when `routes` is a dict, each chunk adds one to
     the count of the route it took (`_flat_topk`)."""
     dev = cstore.device
     w_dev = torch.from_numpy(
@@ -137,9 +142,11 @@ def dispatch_flat(cstore, rows: np.ndarray, qids: np.ndarray,
             torch.from_numpy(qids[lo:lo + CHUNK].astype(np.int32)).to(dev),
             w_dev, k, num_queries,
         )
+        rec = None
         if log is not None:
-            log.append(dict(kind="flat", args=args))
-        out, route = _flat_topk(*args)
+            rec = dict(kind="flat", args=args)
+            log.append(rec)
+        out, route = _flat_topk(*args, rec=rec)
         outs.append(out)
         if routes is not None:
             routes[route] = routes.get(route, 0) + 1
@@ -153,7 +160,8 @@ def dispatch_packed_flat(mirror, blocks: np.ndarray, qids: np.ndarray,
     (segment, field) in chunks of `CHUNK`; `weights` [Q + 1] and `caches`
     [Q + 1, 256] are f32 tensors on the mirror's device. Returns one packed
     [2, Q, k] tensor per chunk. When `log` is a list, each chunk's exact
-    inputs are appended to it, tagged `kind="packed_flat"`."""
+    inputs are appended to it, tagged `kind="packed_flat"` (its merge
+    tail's under the record's "tail")."""
     dev = mirror.blk_tab.device
     outs = []
     for lo in range(0, len(blocks), CHUNK):
@@ -163,7 +171,9 @@ def dispatch_packed_flat(mirror, blocks: np.ndarray, qids: np.ndarray,
             torch.from_numpy(qids[lo:lo + CHUNK].astype(np.int32)).to(dev),
             weights, caches, k, num_queries,
         )
+        rec = None
         if log is not None:
-            log.append(dict(kind="packed_flat", args=args))
-        outs.append(packed_flat_topk(*args))
+            rec = dict(kind="packed_flat", args=args)
+            log.append(rec)
+        outs.append(packed_flat_topk(*args, rec=rec))
     return outs

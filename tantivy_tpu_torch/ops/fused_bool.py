@@ -18,12 +18,8 @@ import torch
 from ..utils.trace import debug_time
 
 from .group_probe import group_probe
-from .probe_scorer import (
-    NEG_INF,
-    T_MAX,
-    pack_results_seg,
-    per_query_topk_rows_seg,
-)
+from .merge_tail import topk_rows_seg
+from .probe_scorer import NEG_INF, T_MAX
 
 
 def _grp_scal_layout(n_clauses: int) -> int:
@@ -66,12 +62,13 @@ def fused_kw_max(n_clauses: int) -> int:
 
 
 def fused_bool_topk(chunks, tables, cstore, k: int, num_queries: int,
-                    num_prows: int):
+                    num_prows: int, rec: dict | None = None):
     """One batch phase: one group-probe launch per chunk, then the
-    cross-chunk, cross-segment top-k merge tail. `chunks` holds (rows
-    [W, STRIDE], qid [W], seg [W]) tensors; `tables` holds (cl_weight,
-    cl_kind, cl_shipped, req_must, req_should, row_th). Returns packed
-    [3, Q, k] (score bits | doc | seg)."""
+    cross-chunk, cross-segment top-k merge tail (kernel K8's seg form,
+    `merge_tail.topk_rows_seg`, which takes `rec`). `chunks`
+    holds (rows [W, STRIDE], qid [W], seg [W]) tensors; `tables` holds
+    (cl_weight, cl_kind, cl_shipped, req_must, req_should, row_th).
+    Returns packed [3, Q, k] (score bits | doc | seg)."""
     kk = min(k, 128)
     row_sc, row_doc, row_qid, row_seg = [], [], [], []
     for rows, qid, seg in chunks:
@@ -82,11 +79,9 @@ def fused_bool_topk(chunks, tables, cstore, k: int, num_queries: int,
         row_doc.append(docs)
         row_qid.append(qid)
         row_seg.append(seg)
-    return pack_results_seg(
-        *per_query_topk_rows_seg(
-            torch.cat(row_sc), torch.cat(row_doc), torch.cat(row_seg),
-            torch.cat(row_qid), k, num_queries,
-        )
+    return topk_rows_seg(
+        torch.cat(row_sc), torch.cat(row_doc), torch.cat(row_seg),
+        torch.cat(row_qid), k, num_queries, rec=rec,
     )
 
 
@@ -260,8 +255,9 @@ def launch_fused_bool(fused, work, tables, k: int, num_queries: int,
     fraction `frc` (the kernel probes the TRUE range [jlo+frc, jlo+wid)).
     `tables` = dict of plan-row tables (cl_* [P+1, T], req_*, optional
     row_th). `k` may be inflated by the planner (k_eff). When `log` is a
-    list, each round's exact kernel inputs are appended to it. Returns a
-    list of packed [3, Q, k] tensors on the store's device."""
+    list, each round's exact kernel inputs are appended to it (its merge
+    tail's under the record's "tail"). Returns a list of packed [3, Q, k]
+    tensors on the store's device."""
     (blocks, prow, clause, width, qid, seg, jlo_all, wid_all, frc_all,
      groupable) = work
     n_items = len(blocks)
@@ -381,15 +377,18 @@ def launch_fused_bool(fused, work, tables, k: int, num_queries: int,
                     chunks.append(chunk)
         if not chunks:
             break
+        rec = None
         if log is not None:
-            log.append(dict(
+            rec = dict(
                 kind="bool", chunks=chunks, tables=table_args,
                 cstore=cstore, k=k,
                 num_queries=num_queries, num_prows=num_prows, n_clauses=T,
-            ))
+            )
+            log.append(rec)
         with debug_time("launch.dispatch"):
             outs.append(fused_bool_topk(
                 chunks, table_args, cstore, k, num_queries, num_prows,
+                rec=rec,
             ))
         if all(r[9] >= len(r[1]) for r in per_rung):
             break

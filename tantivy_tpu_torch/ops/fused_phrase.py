@@ -18,8 +18,9 @@ import torch
 
 from ..utils.trace import debug_time
 
+from .merge_tail import topk_rows_seg
 from .phrase_probe import phrase_probe
-from .probe_scorer import NEG_INF, pack_results_seg, per_query_topk_rows_seg
+from .probe_scorer import NEG_INF
 
 #: slab rungs: (rows, W tiers in groups). `rows` bounds BOTH the anchor
 #: slab and each partner slab a group reads; a rung admits a group when
@@ -56,11 +57,13 @@ def _phrase_scal_layout(n_partners: int) -> int:
 
 
 def fused_phrase_topk(chunks, qw, row_th, cstore, postore, k: int,
-                      num_queries: int, num_prows: int, n_partners: int):
+                      num_queries: int, num_prows: int, n_partners: int,
+                      rec: dict | None = None):
     """One batch phase: one position-probe launch per chunk, then the
-    cross-chunk, cross-segment top-k merge tail. `chunks` holds (slab rows
-    RR, rows [W, STRIDE], qid [W], seg [W]). Returns packed [3, Q, k]
-    (score bits | doc | seg)."""
+    cross-chunk, cross-segment top-k merge tail (kernel K8's seg form,
+    `merge_tail.topk_rows_seg`, which takes `rec`). `chunks`
+    holds (slab rows RR, rows [W, STRIDE], qid [W], seg [W]). Returns
+    packed [3, Q, k] (score bits | doc | seg)."""
     kk = min(k, 128)
     row_sc, row_doc, row_qid, row_seg = [], [], [], []
     for rr, rows, qid, seg in chunks:
@@ -72,11 +75,9 @@ def fused_phrase_topk(chunks, qw, row_th, cstore, postore, k: int,
         row_doc.append(docs)
         row_qid.append(qid)
         row_seg.append(seg)
-    return pack_results_seg(
-        *per_query_topk_rows_seg(
-            torch.cat(row_sc), torch.cat(row_doc), torch.cat(row_seg),
-            torch.cat(row_qid), k, num_queries,
-        )
+    return topk_rows_seg(
+        torch.cat(row_sc), torch.cat(row_doc), torch.cat(row_seg),
+        torch.cat(row_qid), k, num_queries, rec=rec,
     )
 
 
@@ -141,8 +142,8 @@ def launch_fused_phrase(fused, work, qw_table, n_partners: int, k: int,
     the phrase weight per plan row; `row_th` [Pp] f32 (optional) carries
     each plan row's current kth score for the threshold-bounded per-group
     selection. When `log` is a list, each round's exact kernel inputs are
-    appended to it. Returns a list of packed [3, Q, k] tensors on the
-    store's device."""
+    appended to it (its merge tail's under the record's "tail"). Returns a
+    list of packed [3, Q, k] tensors on the store's device."""
     blocks, prow, qid, seg, lpos, llen, cpos, clen, delta, anchor = work
     if len(blocks) == 0:
         return []
@@ -276,16 +277,18 @@ def launch_fused_phrase(fused, work, qw_table, n_partners: int, k: int,
                     chunks.append(chunk)
         if not chunks:
             break
+        rec = None
         if log is not None:
-            log.append(dict(
+            rec = dict(
                 kind="phrase", chunks=chunks, qw=qw_dev, row_th=th_dev,
                 cstore=cstore, postore=postore, k=k,
                 num_queries=num_queries, num_prows=num_prows, n_partners=S,
-            ))
+            )
+            log.append(rec)
         with debug_time("launch.dispatch"):
             outs.append(fused_phrase_topk(
                 chunks, qw_dev, th_dev, cstore, postore, k,
-                num_queries, num_prows, S,
+                num_queries, num_prows, S, rec=rec,
             ))
         if all(r[3] >= len(r[2]) for r in per_rung):
             break

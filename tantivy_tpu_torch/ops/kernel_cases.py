@@ -1,9 +1,9 @@
 """Synthetic launch chunks for the boolean probe kernels K1 (group probe),
 K3 (windowed probe) and K4 (deep probe), the packed flat scorer K5, the
-per-segment phrase probe K6 and the dense flat scorer K7, made from a seed
-with numpy: the shapes the real launches seldom reach and the kernels'
-designs find hard. The tests hold the plain twins against the
-reference kernels on them, and the card checks
+per-segment phrase probe K6, the dense flat scorer K7 and the merge tails
+K8, made from a seed with numpy: the shapes the real launches seldom reach
+and the kernels' designs find hard. The tests hold the plain twins against
+the reference kernels on them, and the card checks
 (`tests/test_torch_*_probe.py`, `chip_smoke.py`) hold the CUDA kernels
 against the twins.
 
@@ -67,6 +67,21 @@ row repeated or not, padding items (qid = num_queries) holding real rows:
 * "no_alive": no deletes; the cache form gets `alive` None;
 * "sparse": 1 to 8 live docs a row, fewer than kk = 10 or 128, so most
   slots are -inf lanes with their own docs.
+K8 kinds (`tail_case`), one launch's [W, kk] per-row candidates with a
+qid and a segment a row, rows of qid = num_queries (padding) and -inf
+lanes among them; `merge_tail_model` is K8's algorithm in numpy:
+* "ties": six score levels, so equal scores straddle every cut, docs up to
+  2^32 - 1 (the u32 order), and planted duplicate addresses of one query;
+* "zeros": +0.0 and -0.0 (and +-1.0) in every query, one address at both
+  zeros in rows of one query;
+* "long": W = 4,096 rows, one query owning most of them (many tiles), one
+  query owning none, docs from a small pool, so addresses repeat across
+  tiles;
+* "dups": the phrase-prefix shape, each query's rows a union-max
+  expansion: many rows of one query over few docs, each address at
+  several scores in rows of different tiles;
+* "sparse": one to three live lanes a row and few rows a query, fewer
+  hits than k.
 K6 kinds (`phrase_case`), each query a leader region and partner regions
 whose docs hold planted aligned phrase positions among random ones:
 * "leader_tf16": leader lanes at tf 16 (MAX_P), up to 16 matches a doc;
@@ -102,6 +117,7 @@ BOOL_KINDS = ("every_row", "store_end")
 DEEP_KINDS = ("ladder_edge", "t16", "stage_edges")
 PACKED_KINDS = ("widths", "no_freqs", "ties")
 DENSE_KINDS = ("ties", "dead", "mid_pad", "invalid", "no_alive", "sparse")
+TAIL_KINDS = ("ties", "zeros", "long", "dups", "sparse")
 PHRASE_KINDS = ("leader_tf16", "partner_tf256", "window_1024", "store_end",
                 "deleted", "t8", "ties", "stage_edges")
 _WIDTHS = (0, 1, 2, 4, 8, 16, 32)
@@ -821,3 +837,211 @@ def phrase_case(kind: str, seed: int = 0) -> dict:
                 parts=dict(docs=store_docs, tfs=store_tfs,
                            norm_ids=norm_ids, alive=alive, cache=cache,
                            positions=positions, pos_cum=pos_cum))
+
+
+def tail_case(kind: str, kk: int = 32, seed: int = 0) -> dict:
+    """One K8 call of `kind` (see the module note): `row_sc` [W, kk] f32,
+    `row_doc` [W, kk] u32 (TERMINATED on -inf lanes), `row_seg` [W] i32,
+    `qid` [W] i32 (num_queries on padding rows) and `num_queries`."""
+    rng = np.random.default_rng(8000 + 31 * seed + TAIL_KINDS.index(kind))
+    W, Q, n_docs, n_seg = 300, 12, 400, 4
+    if kind == "long":
+        W, Q, n_docs = 4096, 8, 3000
+    elif kind == "dups":
+        W, Q, n_docs, n_seg = 1200, 6, 150, 3
+    elif kind == "sparse":
+        W, Q = 40, 16
+    levels = rng.uniform(0.5, 9.0, 6).astype(np.float32)
+    sc = levels[rng.integers(0, len(levels), (W, kk))]
+    if kind in ("long", "dups"):
+        sc = rng.uniform(0.5, 9.0, (W, kk)).astype(np.float32)
+    if kind == "zeros":
+        sc = np.array([0.0, -0.0, 1.0, -1.0, 0.0, -0.0],
+                      np.float32)[rng.integers(0, 6, (W, kk))]
+    dc = rng.integers(0, n_docs, (W, kk)).astype(np.uint32)
+    if kind == "ties":
+        dc[rng.random((W, kk)) < 0.2] += np.uint32(0xFFFF0000)
+    seg = rng.integers(0, n_seg, W).astype(np.int32)
+    qid = rng.integers(0, Q, W).astype(np.int32)
+    if kind == "long":
+        qid = np.where(rng.random(W) < 0.9, 3, qid)
+        qid[qid == 5] = 6           # query 5 owns no row
+    qid[rng.random(W) < 0.08] = Q   # padding rows
+    dead = rng.random((W, kk)) < (0.25 if kind != "sparse" else 0.0)
+    if kind == "sparse":
+        dead = np.ones((W, kk), bool)
+        for w in range(W):
+            dead[w, rng.choice(kk, int(rng.integers(1, 4)), replace=False)] = (
+                False)
+    # duplicate addresses of one query, planted row against row, at the
+    # same score or another
+    for _ in range(W // 4):
+        a, b = rng.integers(0, W, 2)
+        qid[b], seg[b] = qid[a], seg[a]
+        j, i = rng.integers(0, kk, 2)
+        dc[b, i] = dc[a, j]
+        dead[b, i] = dead[a, j]
+        sc[b, i] = (sc[a, j] if rng.random() < 0.5
+                    else levels[rng.integers(0, len(levels))])
+    if kind == "zeros":
+        # one address at both zeros, in two rows of query 0
+        qid[:2], seg[:2], dead[:2, 0] = 0, 1, False
+        dc[:2, 0] = 7
+        sc[0, 0], sc[1, 0] = np.float32(-0.0), np.float32(0.0)
+    sc[dead] = -np.inf
+    dc[dead] = TERMINATED
+    return dict(kind=kind, row_sc=sc, row_doc=dc, row_seg=seg, qid=qid,
+                num_queries=Q)
+
+
+#: rows a tile of K8's select kernel takes (`csrc/merge_tail.cu`)
+TAIL_TILE_ROWS = 32
+_NEG_INF_BITS = 0xFF800000
+_M32 = 0xFFFFFFFF
+
+
+def _image(bits: int) -> int:
+    """`merge_tail.cu`'s score_image: order-keeping, one image a bit
+    pattern."""
+    return (~bits) & _M32 if bits & 0x80000000 else bits | 0x80000000
+
+
+def _image_bits(x: int) -> int:
+    return x & 0x7FFFFFFF if x & 0x80000000 else (~x) & _M32
+
+
+class _TailRun:
+    """A warp's running top-k as K8's select kernel keeps it: entries are
+    96-bit keys (x, y, z), best first; `gth` the query's shared bound."""
+
+    def __init__(self, k: int, seg: bool):
+        self.k, self.seg, self.lst, self.gth = k, seg, [], 0
+
+    def beats(self, e) -> bool:
+        return ((e[0] << 32) | e[1]) >= self.gth and (
+            len(self.lst) < self.k or e > self.lst[-1])
+
+    def insert(self, ents, real) -> None:
+        """One lane slot: the lanes' candidates that are real and beat the
+        thresholds, in lane order, merged as one batch."""
+        batch = [e for e, r in zip(ents, real) if r and self.beats(e)]
+        if batch:
+            self.merge(batch)
+
+    def merge(self, batch) -> None:
+        cur, k, m = self.lst, self.k, len(batch)
+        keep, dele = [True] * m, [-1] * m
+        if self.seg:
+            for lane, c in enumerate(batch):
+                for u, o in enumerate(batch):
+                    if u != lane and o[1:] == c[1:] and (
+                            o > c or (o == c and u < lane)):
+                        keep[lane] = False
+            at = {e[1:]: j for j, e in enumerate(cur)}
+            if len(at) != len(cur):
+                raise AssertionError("a seg-form list holds one address "
+                                     "twice")
+            for lane, c in enumerate(batch):
+                j = at.get(c[1:], -1)
+                if j >= 0:
+                    if keep[lane] and c > cur[j]:
+                        dele[lane] = j
+                    else:
+                        keep[lane] = False
+        # rank in the list: the entries at or above the candidate
+        rank = [sum(1 for e in cur if not c > e) for c in batch]
+        nxt = [None] * k
+        gone = set(d for d in dele if d >= 0)
+        for j, e in enumerate(cur):
+            if j in gone:
+                continue
+            p = (j - sum(1 for d in dele if 0 <= d < j)
+                 + sum(1 for u in range(m) if keep[u] and rank[u] <= j))
+            if p < k:
+                if nxt[p] is not None:
+                    raise AssertionError("two entries at one place")
+                nxt[p] = e
+        for lane, c in enumerate(batch):
+            if not keep[lane]:
+                continue
+            rc = sum(1 for u, o in enumerate(batch)
+                     if keep[u] and (o > c or (o == c and u < lane)))
+            p = rank[lane] - sum(1 for d in dele if 0 <= d < rank[lane]) + rc
+            if p < k:
+                if nxt[p] is not None:
+                    raise AssertionError("two entries at one place")
+                nxt[p] = c
+        n = min(k, len(cur) - len(gone) + sum(keep))
+        if any(e is None for e in nxt[:n]) or any(
+                e is not None for e in nxt[n:]):
+            raise AssertionError("the merge left a hole")
+        self.lst = nxt[:n]
+
+
+def merge_tail_model(row_sc, row_doc, row_seg, qid, k: int,
+                     num_queries: int, seed: int = 0) -> np.ndarray:
+    """K8's algorithm in numpy (`csrc/merge_tail.cu`), its arithmetic as the
+    card runs it: the group pass (each query's rows in an order drawn from
+    `seed`, as the scatter's atomics leave them), tiles of
+    TAIL_TILE_ROWS rows, lane slots of a row as batches, the threshold test
+    against the tile's k-th key and the query's shared bound (tiles run
+    interleaved row by row in an order drawn from `seed`, publishing their
+    k-th key prefix after each row), the seg form's dedup (the batch's own
+    duplicates, then a strictly better key replacing the list's entry),
+    the rank merge, and the last tile's merge of the tile lists. `row_seg`
+    None is the rows form. Returns the packed [2 or 3, Q, k] int32 result.
+    """
+    rng = np.random.default_rng(seed)
+    seg_form = row_seg is not None
+    W, kk = row_sc.shape
+    bits = np.ascontiguousarray(row_sc, np.float32).view(np.uint32)
+    docs = np.ascontiguousarray(row_doc).view(np.uint32)
+    out = np.zeros((3 if seg_form else 2, num_queries, k), np.uint32)
+    out[0] = _NEG_INF_BITS
+
+    def entry(w, j):
+        b, d = int(bits[w, j]), int(docs[w, j])
+        if seg_form:
+            return (_image(b), ~int(row_seg[w]) & _M32, ~d & _M32)
+        return (_image(b), ~d & _M32, _M32)
+
+    def run_row(run, w):
+        for i in range(0, kk, 32):
+            lanes = range(i, min(i + 32, kk))
+            run.insert([entry(w, j) for j in lanes],
+                       [int(bits[w, j]) != _NEG_INF_BITS for j in lanes])
+
+    for q in range(num_queries):
+        rows = rng.permutation(np.flatnonzero(qid == q))
+        tiles = [list(rows[t:t + TAIL_TILE_ROWS])
+                 for t in range(0, len(rows), TAIL_TILE_ROWS)] or [[]]
+        runs = [_TailRun(k, seg_form) for _ in tiles]
+        if len(tiles) == 1:
+            for w in tiles[0]:
+                run_row(runs[0], w)
+            final = runs[0]
+        else:
+            shared = 0
+            pending = [list(t) for t in tiles]
+            while any(pending):
+                t = int(rng.choice([i for i, p in enumerate(pending) if p]))
+                run = runs[t]
+                run.gth = shared
+                run_row(run, pending[t].pop(0))
+                if len(run.lst) == k:
+                    pre = (run.lst[-1][0] << 32) | run.lst[-1][1]
+                    if pre > run.gth:
+                        shared = max(shared, pre)
+            final = _TailRun(k, seg_form)
+            src = [e for r in runs
+                   for e in r.lst + [(0, 0, 0)] * (k - len(r.lst))]
+            for e0 in range(0, len(src), 32):
+                ents = src[e0:e0 + 32]
+                final.insert(ents, [e != (0, 0, 0) for e in ents])
+        for j, e in enumerate(final.lst):
+            out[0, q, j] = _image_bits(e[0])
+            if seg_form:
+                out[1, q, j], out[2, q, j] = ~e[2] & _M32, ~e[1] & _M32
+            else:
+                out[1, q, j] = ~e[1] & _M32
+    return out.view(np.int32)

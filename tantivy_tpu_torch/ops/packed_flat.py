@@ -30,12 +30,8 @@ import torch
 from ..postings.format import TERMINATED
 from .decode import as_u32, decode_blocks
 from .device_index import TAB_COLS
-from .probe_scorer import (
-    check_tensor,
-    group_topk,
-    pack_results,
-    per_query_topk_from_rows,
-)
+from .merge_tail import topk_from_rows
+from .probe_scorer import check_tensor, group_topk
 
 #: kernel launches since the last reset (the CPU twin does not count);
 #: batches in flight on several threads add to it under `_count_lock`
@@ -142,16 +138,15 @@ def packed_flat(doc_words, tf_words, blk_tab, norm_ids, alive, blocks, qids,
 
 
 def packed_flat_topk(mirror, blocks, qids, weights, caches, k: int,
-                     num_queries: int):
+                     num_queries: int, rec: dict | None = None):
     """One launch chunk end to end: the kernel (its twin on the CPU) with
-    row top-kk, kk = min(k, 128), then the per-query merge. `mirror` is a
-    `device_index.PackedMirror`. Returns packed [2, Q, k] i32 (score bits
-    | doc), -inf / 0 past a query's hits."""
+    row top-kk, kk = min(k, 128), then the per-query merge (kernel K8's
+    rows form, `merge_tail.topk_from_rows`, which takes `rec`). `mirror`
+    is a `device_index.PackedMirror`. Returns packed [2, Q, k] i32 (score
+    bits | doc), -inf / 0 past a query's hits."""
     sc, docs = packed_flat(*mirror, blocks, qids, weights, caches,
                            num_queries=num_queries, kk=min(k, 128))
-    return pack_results(*per_query_topk_from_rows(
-        sc, docs, qids, k, num_queries
-    ))
+    return topk_from_rows(sc, docs, qids, k, num_queries, rec=rec)
 
 
 def _lib() -> ctypes.CDLL:

@@ -41,12 +41,11 @@ import torch
 
 from ..postings.format import TERMINATED
 from ..utils.trace import debug_time
+from .merge_tail import topk_from_rows
 from .probe_scorer import (
     binsearch_flat,
     check_tensor,
     group_topk,
-    pack_results,
-    per_query_topk_from_rows,
 )
 
 #: max phrase terms on the device path
@@ -265,17 +264,16 @@ def seg_phrase(rows, q_weight, cl_start, cl_len, cl_shift, cstore, postore,
 
 def seg_phrase_topk(rows, tables, cstore, postore, blk_pos, blk_last, *,
                     k: int, num_queries: int, kw: int, pw: int,
-                    n_iters: int):
+                    n_iters: int, rec: dict | None = None):
     """One launch chunk end to end: the kernel (its twin on the CPU) with
-    item top-kk, kk = min(k, 128), then the per-query merge. `tables` =
-    (q_weight, cl_start, cl_len, cl_shift). Returns packed [2, Q, k] i32
-    (score bits | doc)."""
+    item top-kk, kk = min(k, 128), then the per-query merge (kernel K8's
+    rows form, `merge_tail.topk_from_rows`, which takes `rec`). `tables` = (q_weight, cl_start, cl_len, cl_shift). Returns
+    packed [2, Q, k] i32 (score bits | doc)."""
     sc, docs = seg_phrase(rows, *tables, cstore, postore, blk_pos, blk_last,
                           num_queries=num_queries, kk=min(k, 128), kw=kw,
                           pw=pw, n_iters=n_iters)
-    return pack_results(*per_query_topk_from_rows(
-        sc, docs, rows[:, 1], k, num_queries
-    ))
+    return topk_from_rows(sc, docs, rows[:, 1].contiguous(), k, num_queries,
+                          rec=rec)
 
 
 def dispatch_phrase(fused, slab, work_blocks, work_qid, work_term, tables,
@@ -324,17 +322,20 @@ def dispatch_phrase(fused, slab, work_blocks, work_qid, work_term, tables,
     rows = np.stack([work_blocks + off, work_qid, work_term],
                     axis=1).astype(np.int32)
     rows_t = torch.from_numpy(rows).to(dev)
+    rec = None
     if log is not None:
-        log.append(dict(
+        rec = dict(
             kind="seg_phrase", rows=rows_t, tables=targs, cstore=cstore,
             postore=postore, blk_pos=blk_pos, blk_last=blk_last, k=k,
             num_queries=num_queries, kw=kw, pw=pw, n_iters=n_iters,
             n_terms=T,
-        ))
+        )
+        log.append(rec)
     with debug_time("phrase_seg.launch", n=len(rows)):
         out = seg_phrase_topk(
             rows_t, targs, cstore, postore, blk_pos, blk_last, k=k,
             num_queries=num_queries, kw=kw, pw=pw, n_iters=n_iters,
+            rec=rec,
         )
     if count is not None:
         count("phrase_seg")

@@ -1,14 +1,17 @@
-"""Planner constants, the merge tails, the probe scorers' shared lane
-combine and the per-segment probe dispatch, in torch.
+"""Planner constants, the merge tails' plain twins, the probe scorers'
+shared lane combine and the per-segment probe dispatch, in torch.
 
 Counterpart of `tantivy_tpu/ops/probe_scorer.py` (which imports jax at the
-top, so the constants are copied here). The merge tails were XLA in the
-reference, not Pallas, so they are plain torch ops: torch has no multi-key
-sort, so keys are packed into int64 and combined by chained stable sorts.
-`dispatch_probe` sends the per-segment Block-WAND path's windowed work to
-kernel K3 (`ops/bool_probe.py`) and its wide work to kernel K4
-(`ops/deep_probe.py`, the reference's XLA `probe_bool_topk`), whose twins
-share `lane_scores` and the deep twin's `probe_term`.
+top, so the constants are copied here). The reference's two merge tails
+(XLA programs) are kernel K8 on the card (`ops/merge_tail.py`,
+`csrc/merge_tail.cu`); `per_query_topk_from_rows` and
+`per_query_topk_rows_seg` here are its plain twins, which the wrapper runs
+on CPU tensors: torch has no multi-key sort, so keys are packed into int64
+and combined by chained stable sorts. `dispatch_probe` sends the
+per-segment Block-WAND path's windowed work to kernel K3
+(`ops/bool_probe.py`) and its wide work to kernel K4 (`ops/deep_probe.py`,
+the reference's XLA `probe_bool_topk`), whose twins share `lane_scores`
+and the deep twin's `probe_term`.
 """
 
 from __future__ import annotations
@@ -151,7 +154,7 @@ def per_query_topk_rows_seg(row_sc, row_doc, row_seg, qid, k: int,
     XLA's multi-key sort, so it is not ported."""
     kk = row_sc.shape[1]
     flat_scores = row_sc.reshape(-1)
-    flat_docs = row_doc.reshape(-1).long()
+    flat_docs = row_doc.reshape(-1).long() & _U32
     flat_seg = row_seg.long().repeat_interleave(kk)
     flat_qid = torch.where(
         flat_scores == float("-inf"), num_queries,
@@ -273,7 +276,8 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
     the reference's per-field store holds. `tables` = cl_* [Q+1, T] and
     req_must/req_should [Q+1] numpy arrays. When `log` is a list, each
     chunk's exact inputs are appended to it (kind="probe" for K3, "deep"
-    for K4); `count(kind)` is called once per launch ("probe_kw2", ...,
+    for K4; its merge tail's, kernel K8's, under the record's "tail");
+    `count(kind)` is called once per launch ("probe_kw2", ...,
     "probe_deep"). Returns packed [2, Q, k] tensors on the store's
     device."""
     from .bool_probe import (
@@ -322,17 +326,19 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
                 blk_last = fused.blk_last_device()[:cstore.shape[0]]
                 with debug_time("probe.upload"):
                     rows_t = torch.from_numpy(rows).to(dev)
+                rec = None
                 if log is not None:
-                    log.append(dict(
+                    rec = dict(
                         kind="deep", rows=rows_t, tables=targs,
                         cstore=cstore, blk_last=blk_last, k=k,
                         num_queries=num_queries, n_iters=n_iters,
                         n_clauses=T,
-                    ))
+                    )
+                    log.append(rec)
                 with debug_time("probe.launch_deep", n=len(b)):
                     outs.append(deep_probe_topk(
                         rows_t, targs, cstore, blk_last, k=k,
-                        num_queries=num_queries, n_iters=n_iters,
+                        num_queries=num_queries, n_iters=n_iters, rec=rec,
                     ))
                 kind = "probe_deep"
             else:
@@ -346,16 +352,18 @@ def dispatch_probe(fused, slab, work_blocks, work_qid, work_clause, tables,
                 rows[:, 3 + T:] = _kw8(kw)
                 with debug_time("probe.upload"):
                     rows_t = torch.from_numpy(rows).to(dev)
+                rec = None
                 if log is not None:
-                    log.append(dict(
+                    rec = dict(
                         kind="probe", rows=rows_t, tables=targs,
                         cstore=cstore, kw=kw, k=k,
                         num_queries=num_queries, n_clauses=T,
-                    ))
+                    )
+                    log.append(rec)
                 with debug_time("probe.launch_windowed", n=len(b)):
                     outs.append(bool_probe_topk(
                         rows_t, targs, cstore, k=k,
-                        num_queries=num_queries, kw=kw,
+                        num_queries=num_queries, kw=kw, rec=rec,
                     ))
                 kind = f"probe_kw{kw}"
             if count is not None:

@@ -10,22 +10,23 @@ launch seam differs, pointing at the port's modules. Five chains run on
 the device:
 * the fused boolean chain: `_search_boolean_fused` ->
   `fused_bool.launch_fused_bool` -> `fused_bool_topk` -> the group-probe
-  kernel (K1) and the merge tail;
+  kernel (K1) and the merge tail (K8's seg form, `ops/merge_tail.py`);
 * the fused phrase chain, for slop-0 phrases and multi-term
   phrase-prefixes: `_search_phrase_fused` ->
   `fused_phrase.launch_fused_phrase` -> `fused_phrase_topk` -> the
-  position-probe kernel (K2) and the merge tail;
+  position-probe kernel (K2) and the merge tail (K8's seg form);
 * the reference's per-segment Block-WAND boolean path: per (segment,
   field, clause bucket) work lists -> `probe_scorer.dispatch_probe` -> the
   windowed-probe kernel (K3, `bool_probe.bool_probe_topk`) or the deep
-  per-lane probe (K4), each with a per-segment merge tail;
+  per-lane probe (K4), each with a per-segment merge tail (K8's rows
+  form);
 * `search_term_batch`, the reference's flat term scorer
   (`ops/flat_scorer.py`): kernel K7's store form (`ops/dense_flat.py`);
 * the reference's per-segment Block-WAND phrase path
   (`_search_phrase_seg`): per (segment, field, term count) leader block
   work lists -> `phrase_scorer.dispatch_phrase` -> the per-segment phrase
   kernel (K6, `phrase_scorer.seg_phrase_topk`) with a per-segment merge
-  tail.
+  tail (K8's rows form).
 All read the same fused store. Which chain a method takes depends on the
 executor's route alone, never on its device:
 * `fused=True`, the reference's Pallas mode (the dense default):
@@ -434,8 +435,8 @@ class BatchExecutor:
         per-query threshold; phase 2 scores only blocks whose block-max beats
         it. Exact modulo the reference's own block-max caveat. `terms` are
         `Term`s. Returns list[list[(score, DocAddress)]]. In dense mode a k
-        above kernel K7's cap takes its row stage and the torch merge; each
-        such flat chunk counts in `plan_stats["flat_rows_k"]`."""
+        above kernel K7's cap takes its row stage and the merge tail (K8);
+        each such flat chunk counts in `plan_stats["flat_rows_k"]`."""
         from ..ops.flat_scorer import dispatch_flat, dispatch_packed_flat
 
         Q = len(terms)
@@ -469,7 +470,7 @@ class BatchExecutor:
                     weights_pad, k, Q, log=self.launch_log, routes=routes,
                 )
                 if routes.get("rows"):
-                    # above K7's cap: its row stage and the torch merge
+                    # above K7's cap: its row stage and the merge tail
                     self._count_plan("flat_rows_k", routes["rows"])
                 return outs
         else:

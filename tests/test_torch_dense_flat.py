@@ -670,9 +670,9 @@ def test_tiles_that_split_one_query_on_cuda(n_items):
 @pytest.mark.cuda
 def test_k_up_to_128_runs_no_torch_sort_on_cuda(monkeypatch):
     """On the card, `flat_topk` and `_topk_kernel` at k <= 128 run K7 alone:
-    with torch.sort, `_lexsort2` and `per_query_topk_from_rows` made to
-    raise they still give the twin's result; the launch counter grows by
-    two kernels a call."""
+    with torch.sort, `_lexsort2`, `per_query_topk_from_rows` and the
+    merge tail (`topk_from_rows`) made to raise they still give the twin's
+    result; the launch counter grows by two kernels a call."""
     _cuda()
     case = kc.dense_case("mid_pad")
     Q = case["num_queries"]
@@ -691,7 +691,7 @@ def test_k_up_to_128_runs_no_torch_sort_on_cuda(monkeypatch):
 
     monkeypatch.setattr(torch, "sort", boom)
     monkeypatch.setattr(probe_scorer, "_lexsort2", boom)
-    monkeypatch.setattr(flat_scorer, "per_query_topk_from_rows", boom)
+    monkeypatch.setattr(flat_scorer, "topk_from_rows", boom)
     monkeypatch.setattr(df, "per_query_topk_from_rows", boom)
     for k in KKS:
         n0 = df.launches

@@ -1,8 +1,20 @@
-"""The port's merge tail (`per_query_topk_rows_seg`, torch) equals the
-reference's XLA one on random candidate rows with planted duplicate
-addresses and score ties. The port keeps only the reference's 5-array form,
-which is held against both reference forms. Scores are compared as f32
-bits."""
+"""The port's merge tails against the reference's XLA ones, scores compared
+as f32 bits:
+
+* the seg form's twin (`per_query_topk_rows_seg`, torch) on random
+  candidate rows with planted duplicate addresses and score ties, against
+  both reference forms (the port keeps only the 5-array one);
+* both twins (`per_query_topk_from_rows` too) on every
+  `kernel_cases.tail_case`: ties, -inf lanes and qid = Q padding, +0.0 and
+  -0.0 in one query, one query of over a hundred 32-row tiles and one of
+  none, planted cross-tile duplicates, k above a query's hits;
+* `kernel_cases.merge_tail_model`, kernel K8's algorithm in numpy, on the
+  same cases;
+* K8's wrapper (`ops/merge_tail.py`) on CPU tensors (the twin), and the
+  executor's tails going through it on both routes.
+The `cuda` cases hold K8 against its twin on the card, bitwise, on every
+tail case, at the fused chains' shapes and at k up to 2,000. Inputs are made from seeds with
+numpy."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +23,8 @@ import torch
 
 from tantivy_tpu.ops import probe_scorer as ref
 from tantivy_tpu.postings.format import TERMINATED
+from tantivy_tpu_torch.ops import kernel_cases as kc
+from tantivy_tpu_torch.ops import merge_tail as mt
 from tantivy_tpu_torch.ops import probe_scorer as port
 
 
@@ -93,3 +107,328 @@ def test_sortable_desc_round_trip():
     order = torch.argsort(key, stable=True).numpy()
     assert np.all(np.diff(v[order]) <= 0)
     assert len(set(key.tolist())) == len(v)
+
+
+# --- kernel K8 (`ops/merge_tail.py`, `csrc/merge_tail.cu`) and its twins
+
+TAIL_KS = (1, 10, 40, 128, 200)
+FORMS = ("rows", "seg")
+
+
+def t(a):
+    """numpy -> torch, u32 as int32 bits."""
+    return torch.from_numpy(np.array(a.view(np.int32) if a.dtype == np.uint32
+                                     else a))
+
+
+def tail_args(case, form, device="cpu"):
+    """The wrapper's positional args of a `kernel_cases.tail_case` call in
+    `form` (no segments in the rows form)."""
+    seg = t(case["row_seg"]).to(device) if form == "seg" else None
+    return (t(case["row_sc"]).to(device), t(case["row_doc"]).to(device), seg,
+            t(case["qid"]).to(device))
+
+
+def reference_tail(case, form, k):
+    """The reference's merge tail on the case, packed as K8 packs it:
+    [2 or 3, Q, k] int32."""
+    Q = case["num_queries"]
+    sc, dc, qid = (jnp.asarray(case[key])
+                   for key in ("row_sc", "row_doc", "qid"))
+    if form == "rows":
+        out = ref.per_query_topk_from_rows(sc, dc, qid, k, Q)
+    else:
+        out = ref.per_query_topk_rows_seg(sc, dc, jnp.asarray(case["row_seg"]),
+                                          qid, k, Q)
+    out = [np.asarray(a) for a in out]
+    return np.stack([out[0].view(np.int32)]
+                    + [a.astype(np.uint32).view(np.int32) for a in out[1:]])
+
+
+def bits(hits):
+    return [(int(np.float32(s).view(np.int32)), a) for s, a in hits]
+
+
+def call(form, args, k, Q, **kw):
+    sc, dc, seg, qid = args
+    if form == "rows":
+        return mt.topk_from_rows(sc, dc, qid, k, Q, **kw)
+    return mt.topk_rows_seg(sc, dc, seg, qid, k, Q, **kw)
+
+
+@pytest.mark.parametrize("kk", [32, 128])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kind", kc.TAIL_KINDS)
+def test_twins_match_reference_on_tail_cases(kind, form, kk):
+    """Both twins equal the reference's merge tails word for word (f32
+    bits, docs, segs) on every tail case: ties, -inf lanes and qid = Q
+    padding rows, +0.0 and -0.0 in one query, a query of many tiles and
+    one of none, planted cross-row duplicates, fewer hits than k."""
+    case = kc.tail_case(kind, kk=kk)
+    Q = case["num_queries"]
+    for k in TAIL_KS:
+        got = mt.twin(*tail_args(case, form), k, Q).numpy()
+        assert np.array_equal(got, reference_tail(case, form, k)), k
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kind", kc.TAIL_KINDS)
+def test_numpy_model_of_k8_matches_reference(kind, form):
+    """K8's algorithm in numpy (`kernel_cases.merge_tail_model`: tiles of
+    32 rows, lane-slot batches, the tile's and the query's shared k-th
+    keys, the seg form's strictly-better dedup, the rank merge and the last
+    tile's merge of the tile lists) equals the reference, whatever order
+    the scatter leaves a query's rows in and its tiles run in."""
+    case = kc.tail_case(kind, kk=32)
+    seg = case["row_seg"] if form == "seg" else None
+    for k, seed in ((1, 0), (10, 1), (10, 2), (40, 3)):
+        got = kc.merge_tail_model(case["row_sc"], case["row_doc"], seg,
+                                  case["qid"], k, case["num_queries"],
+                                  seed=seed)
+        assert np.array_equal(got, reference_tail(case, form, k)), (k, seed)
+
+
+@pytest.mark.parametrize("k", [200, 300])
+def test_numpy_model_above_k_128(k):
+    """The model at k above 128, where a lane holds its list entries in
+    several 128-entry chunks: the long query's tiles each fill a list of
+    k, and the dups' cross-tile duplicates meet in the last tile's
+    merge."""
+    for kind in ("long", "dups"):
+        case = kc.tail_case(kind, kk=32)
+        for form in FORMS:
+            seg = case["row_seg"] if form == "seg" else None
+            got = kc.merge_tail_model(case["row_sc"], case["row_doc"], seg,
+                                      case["qid"], k, case["num_queries"],
+                                      seed=k)
+            assert np.array_equal(got, reference_tail(case, form, k)), (
+                kind, form)
+
+
+def test_numpy_model_at_kk_and_k_128():
+    """The model at K8's caps, kk = k = 128 (four lane slots a row, four
+    list entries a lane), over the cross-tile duplicates of "dups"."""
+    case = kc.tail_case("dups", kk=128)
+    got = kc.merge_tail_model(case["row_sc"], case["row_doc"],
+                              case["row_seg"], case["qid"], 128,
+                              case["num_queries"], seed=5)
+    assert np.array_equal(got, reference_tail(case, "seg", 128))
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_signed_zeros_keep_two_keys(form):
+    """+0.0 and -0.0 of one query are two scores, +0.0 first; an address
+    reported at both keeps +0.0 in the seg form (neither K7's zero fold nor
+    the sharded merge's `+ 0.0`). The "zeros" case, and a hand-made query
+    of zeros alone."""
+    case = kc.tail_case("zeros")
+    out = mt.twin(*tail_args(case, form), 40, case["num_queries"]).numpy()
+    assert np.array_equal(out, reference_tail(case, form, 40))
+    z, nz = 0.0, -0.0
+    case = dict(row_sc=np.array([[nz, z, nz, -np.inf], [z, nz, nz, -np.inf],
+                                 [nz, z, -np.inf, -np.inf]], np.float32),
+                row_doc=np.array([[7, 8, 9, TERMINATED], [7, 9, 3, TERMINATED],
+                                  [7, 5, TERMINATED, TERMINATED]], np.uint32),
+                row_seg=np.array([1, 1, 0], np.int32),
+                qid=np.zeros(3, np.int32), num_queries=1)
+    out = mt.twin(*tail_args(case, form), 10, 1).numpy()
+    assert np.array_equal(out, reference_tail(case, form, 10))
+    sc = out[0, 0]
+    n_pos = int((sc == 0).sum())
+    n_neg = int((sc == np.float32(nz).view(np.int32)).sum())
+    # +0.0 first; the seg form keeps (1, 7) once, at +0.0
+    assert (sc[:n_pos] == 0).all() and n_neg
+    if form == "seg":
+        addrs = list(zip(out[2, 0, :n_pos + n_neg], out[1, 0, :n_pos + n_neg]))
+        assert addrs == [(0, 5), (1, 7), (1, 8), (0, 7), (1, 3), (1, 9)]
+    else:
+        assert (n_pos, n_neg) == (3, 5)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_long_query_and_empty_query(form):
+    """One query owns most of W = 4,096 rows (over a hundred of K8's
+    32-row tiles), another owns none: the empty query's slots are -inf / 0
+    / 0, and the long one's top-k equals the reference's."""
+    case = kc.tail_case("long", kk=32)
+    assert (case["qid"] == 3).sum() > 100 * kc.TAIL_TILE_ROWS
+    assert not (case["qid"] == 5).any()
+    out = mt.twin(*tail_args(case, form), 128, case["num_queries"]).numpy()
+    assert np.array_equal(out, reference_tail(case, form, 128))
+    assert (out[0, 5] == np.float32(-np.inf).view(np.int32)).all()
+    assert not out[1:, 5].any()
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_k_above_the_hits_pads(form):
+    """k larger than a query's hits: the slots past them are -inf, doc 0,
+    seg 0."""
+    case = kc.tail_case("sparse")
+    Q = case["num_queries"]
+    out = mt.twin(*tail_args(case, form), 128, Q).numpy()
+    assert np.array_equal(out, reference_tail(case, form, 128))
+    live = case["row_sc"] > -np.inf
+    for q in range(Q):
+        hits = int(live[case["qid"] == q].sum())
+        assert hits < 128
+        pad = out[:, q, hits:]
+        assert (pad[0] == np.float32(-np.inf).view(np.int32)).all()
+        assert not pad[1:].any()
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_wrapper_on_cpu_is_the_twin(form):
+    """On CPU tensors the wrapper returns the twin's result, launches
+    nothing and stores the call's inputs in the round's record (k > 128
+    included)."""
+    case = kc.tail_case("ties")
+    Q = case["num_queries"]
+    args = tail_args(case, form)
+    for k in (10, 200):
+        rec = {"kind": "probe"}
+        n0 = mt.launches
+        got = call(form, args, k, Q, rec=rec)
+        assert torch.equal(got, mt.twin(*args, k, Q))
+        assert got.shape == (2 if form == "rows" else 3, Q, k)
+        assert mt.launches == n0
+        assert rec["kind"] == "probe" and rec["tail"]["form"] == form
+        assert rec["tail"]["args"][4:] == (k, Q)
+
+
+def test_wrapper_checks_its_inputs():
+    case = kc.tail_case("ties")
+    sc, dc, seg, qid = tail_args(case, "seg")
+    Q = case["num_queries"]
+    with pytest.raises(ValueError):
+        mt.topk_from_rows(sc, dc, qid[:-1], 10, Q)
+    with pytest.raises(ValueError):
+        mt.topk_rows_seg(sc, dc, seg.long(), qid, 10, Q)
+    with pytest.raises(ValueError):
+        mt.topk_from_rows(sc.double(), dc, qid, 10, Q)
+    wide = torch.zeros((4, 129), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        mt.topk_from_rows(wide, wide.int(), qid[:4], 10, Q)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_executor_tails_go_through_the_wrapper(fused):
+    """Every merge tail of a mixed batch goes through K8's wrapper: each
+    kernel round of the launch log holds its tail's inputs under "tail",
+    in the seg form on the fused route and the rows form on the
+    per-segment route, and each replayed through the twin gives the
+    tail's result; hits equal the host engine's."""
+    from test_fused_bool import build_zipf_index
+    from test_torch_host_parity import port_searcher
+
+    import tantivy_tpu_torch as pt
+    from tantivy_tpu_torch import BatchExecutor
+
+    index, words = build_zipf_index()
+    ex = BatchExecutor(port_searcher(index), device="cpu", fused=fused)
+    ex.launch_log = []
+    seen = []
+    orig = mt._tail
+
+    def spy(*a):
+        out = orig(*a)
+        seen.append(out)
+        return out
+
+    def q(w):
+        return pt.TermQuery(pt.Term.from_field_text("body", w))
+
+    queries = [q(words[0]), q(words[3]),
+               pt.BooleanQuery.intersection([q(words[0]), q(words[1])]),
+               pt.BooleanQuery.union([q(words[2]), q(words[4])]),
+               pt.PhraseQuery("body", [words[0], words[1]])]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(mt, "_tail", spy)
+    try:
+        got = ex.search_batch(queries, 10)
+    finally:
+        mp.undo()
+    for qq, g in zip(queries, got):
+        assert bits(g) == bits(ex.searcher.search(qq, pt.TopDocs(10)))
+    rounds = [rec for rec in ex.launch_log if rec["kind"] != "flat"]
+    assert rounds and all("tail" in rec for rec in rounds)
+    assert len(rounds) == len(seen)
+    assert {rec["tail"]["form"] for rec in rounds} == {
+        "seg" if fused else "rows"}
+    for rec, out in zip(rounds, seen):
+        assert torch.equal(mt.twin(*rec["tail"]["args"]), out)
+
+
+# --- the kernel itself, on the card
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kk", [32, 128])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kind", kc.TAIL_KINDS)
+def test_kernel_matches_twin_on_cuda(kind, form, kk):
+    """K8 against its twin, bitwise, on every tail case at k = 1, 10, 40,
+    128 and 200; each call launches its two kernels."""
+    _cuda()
+    case = kc.tail_case(kind, kk=kk)
+    Q = case["num_queries"]
+    want_args = tail_args(case, form)
+    args = tail_args(case, form, "cuda")
+    for k in TAIL_KS:
+        n0 = mt.launches
+        got = call(form, args, k, Q)
+        torch.cuda.synchronize()
+        assert mt.launches - n0 == mt.KERNELS_PER_CALL
+        assert torch.equal(got.cpu(), mt.twin(*want_args, k, Q)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("shape", [(65536, 32, 256), (8192, 128, 256),
+                                   (2000, 128, 3), (0, 32, 5)])
+def test_kernel_at_real_shapes_on_cuda(form, shape):
+    """K8 against its twin at the fused chains' shapes (65,536 rows of 32
+    candidates, 8,192 of 128, Q = 256 with qid = Q padding) and at few
+    queries of many tiles each; at no row at all (where the twin takes no
+    input) every slot is padding."""
+    _cuda()
+    W, kk, Q = shape
+    rng = np.random.default_rng(W + kk)
+    sc = rng.uniform(0.5, 9.0, (W, kk)).astype(np.float32)
+    sc[rng.random((W, kk)) < 0.5] = -np.inf
+    dc = rng.integers(0, 5000, (W, kk)).astype(np.uint32)
+    case = dict(row_sc=sc, row_doc=dc,
+                row_seg=rng.integers(0, 4, W).astype(np.int32),
+                qid=np.where(rng.random(W) < 0.1, Q,
+                             rng.integers(0, Q, W)).astype(np.int32),
+                num_queries=Q)
+    args = tail_args(case, form, "cuda")
+    for k in (10, 128, 200):
+        got = call(form, args, k, Q).cpu()
+        if W == 0:
+            assert (got[0] == np.float32(-np.inf).view(np.int32)).all()
+            assert not got[1:].any()
+        else:
+            assert torch.equal(got, mt.twin(*tail_args(case, form), k, Q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1000, 2000])
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kind", ["long", "dups", "sparse"])
+def test_large_k_runs_the_kernel_on_cuda(kind, form, k):
+    """A k far above 128 launches K8 as well: at k = 1,000 its running
+    lists take most of the opt-in shared memory, at k = 2,000 they move to
+    global scratch; bitwise equal to the twin either way."""
+    _cuda()
+    case = kc.tail_case(kind, kk=128)
+    Q = case["num_queries"]
+    n0 = mt.launches
+    got = call(form, tail_args(case, form, "cuda"), k, Q)
+    torch.cuda.synchronize()
+    assert mt.launches - n0 == mt.KERNELS_PER_CALL
+    assert torch.equal(got.cpu(), mt.twin(*tail_args(case, form), k, Q))
