@@ -27,9 +27,10 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    plans the planner sent to the host engine, by reason; every merge tail
    of every path below runs kernel K8 (`ops/merge_tail.py`): on each path
    that keeps a launch log, K8's launches must equal the merge tails its
-   kernel rounds recorded (under "tail") times its 2 kernels (the
-   records' tail inputs move to the host after each batch, so that the
-   log does not add to the peak device memory);
+   kernel rounds recorded (under "tail") times its kernels a call
+   (`merge_tail.KERNELS_PER_CALL`, one cooperative launch; the records'
+   tail inputs move to the host after each batch, so that the log does
+   not add to the peak device memory);
 4b. segment route: `search_batch` of a second executor on the same index,
    `BatchExecutor(searcher, device="cuda", fused=False)` (the reference's
    XLA-mode routing: term queries on the flat scorer, K7; one-field
@@ -41,7 +42,7 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    the main path's list for list, and per suite K7's launches must equal
    the launch log's flat chunks times its 2 kernels, K3's the planner's
    launches over its rungs, K4's `probe_deep`, K6's `phrase_seg`, K8's
-   the launch log's merge tails times its 2 kernels, with no K1, K2 or K5
+   the launch log's merge tails (one launch each), with no K1, K2 or K5
    launch; prints per suite QPS and p50 beside the main
    path's, launches, `host_routed` and host plans by reason; then the
    first SEGMENT_PREFIX_QUERIES queries of the prefix log in one batch (no
@@ -167,7 +168,9 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    through the kernels built from the sources in DIR, an earlier tree's
    `tantivy_tpu_torch/csrc`, and their ms and the chunks whose output
    differs from the current kernel's are printed beside (and the largest
-   packed and deep chunks' ms through those kernels);
+   packed and deep chunks' ms through those kernels, and the largest merge
+   tail's in phase 10; an earlier K8 of two kernels a call runs through
+   its own C entry points);
 9. with `--profile PATH` only: one more fresh batch per timed suite of
    the main path, the segment route and the probe path, of the phrase
    log through the per-segment plan, and of
@@ -181,9 +184,9 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    path and the per-segment phrase path (the `fused=False` route: its
    rows form) and of the packed executor (rows form) through K8 and its
    twin on the card, bitwise; then each `kernel_cases.tail_case` at
-   kk = 32 and 128 and k = 1, 10, 40, 128, 200, 1000 and 2000 (the
-   running lists in global scratch) in both forms; prints the
-   calls held and the largest call's kernel and twin ms and bound.
+   kk = 32 and 128 and k = 1, 10, 40, 128, 200, 1000 and 2000 in both
+   forms; prints the calls held and the largest call's kernel and twin
+   ms, bound and, with `--baseline`, its ms through the earlier K8.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, whose `launches_by_path` gives each kernel's
 launches on every path above that resets the counters (main, segment,
@@ -508,10 +511,14 @@ class kernel_lib:
         self.name, self.lib = name, lib
 
     def __enter__(self):
-        from tantivy_tpu_torch.ops import _build, dense_flat
+        from tantivy_tpu_torch.ops import _build, dense_flat, merge_tail
 
         self.saved = _build.load(self.name)
         _build._libs[self.name] = self.lib
+        if (self.name == "merge_tail"
+                and not hasattr(self.lib, "merge_tail_launch")):
+            self.saved_launch = merge_tail._launch
+            merge_tail._launch = two_kernel_tail(self.lib)
         if self.name == "dense_flat":
             for fn_name, (args, res) in dense_flat.signatures().items():
                 fn = getattr(self.lib, fn_name, None)
@@ -521,11 +528,46 @@ class kernel_lib:
             dense_flat._lib = lambda: self.lib
 
     def __exit__(self, *exc):
-        from tantivy_tpu_torch.ops import _build, dense_flat
+        from tantivy_tpu_torch.ops import _build, dense_flat, merge_tail
 
         _build._libs[self.name] = self.saved
+        if hasattr(self, "saved_launch"):
+            merge_tail._launch = self.saved_launch
         if self.name == "dense_flat":
             dense_flat._lib = self.saved_bind
+
+
+def two_kernel_tail(lib):
+    """`merge_tail._launch` for an earlier K8 build `lib` of two kernels a
+    call (a group kernel of one CTA, then the select kernel), through its
+    own C entry points, for a baseline run beside the current K8."""
+    import ctypes
+
+    import torch
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.merge_tail_scratch_bytes.argtypes = [i, i, i]
+    lib.merge_tail_scratch_bytes.restype = ctypes.c_longlong
+    lib.merge_tail_group_launch.argtypes = [p, i, i, i, p, p]
+    lib.merge_tail_group_launch.restype = ctypes.c_int
+    lib.merge_tail_select_launch.argtypes = [i, p, p, p, i, i, i, i, p, p,
+                                             p]
+    lib.merge_tail_select_launch.restype = ctypes.c_int
+
+    def launch(seg, row_sc, row_doc, row_seg, qid, W, kk, k, num_queries,
+               out, stream):
+        n = lib.merge_tail_scratch_bytes(W, num_queries, k)
+        scratch = torch.empty(n, dtype=torch.uint8, device=out.device)
+        err = lib.merge_tail_group_launch(qid.data_ptr(), W, num_queries, k,
+                                          scratch.data_ptr(), stream)
+        if err == 0:
+            err = lib.merge_tail_select_launch(
+                1 if seg else 0, row_sc.data_ptr(), row_doc.data_ptr(),
+                row_seg.data_ptr() if seg else None, W, kk, num_queries, k,
+                scratch.data_ptr(), out.data_ptr(), stream)
+        return err, "baseline"
+
+    return launch
 
 
 def occupancy(lib, name: str) -> dict:
@@ -544,11 +586,22 @@ def occupancy(lib, name: str) -> dict:
                         (v.value for v in vals)))
 
     own = f"{name}_occupancy"
-    if name == "merge_tail":
-        # the per-segment tails run at k = K, the fused chains' at their
-        # k_eff (TAIL_FUSED_K at k = K)
+    if name == "merge_tail" and not hasattr(lib, "merge_tail_launch"):
+        # an earlier K8 of two kernels a call, group and select
         return {"group": query(own, 2, K), "select_rows": query(own, 0, K),
                 "select_seg": query(own, 1, TAIL_FUSED_K)}
+    if name == "merge_tail":
+        # the grid kernel in each form: the per-segment tails at kk = k =
+        # K, the fused chains' at their k_eff (TAIL_FUSED_K at k = K) and
+        # at the largest calls' kk = k = 128, and above the shared-memory
+        # k (sort arrays in global scratch); the small kernel of small
+        # calls
+        return {"rows": query(own, 0, 0, K, K),
+                "seg": query(own, 1, 0, TAIL_FUSED_K, TAIL_FUSED_K),
+                "seg_kk128": query(own, 1, 0, 128, 128),
+                "seg_global": query(own, 1, 0, 128, 8000),
+                "small_rows": query(own, 0, 1, K, K),
+                "small_seg": query(own, 1, 1, TAIL_FUSED_K, TAIL_FUSED_K)}
     if name == "phrase_probe":
         return {f"S{s}": query(own, s) for s in (1, 3)}
     if name == "dense_flat":
@@ -725,7 +778,7 @@ def run_segment_route(executor, logs, answered, n_seg: int):
     The hits of every timed batch must equal the main path's (`answered`)
     list for list, and each suite's timed batches must launch K7 twice a
     flat chunk, K3 once a planned windowed chunk, K4 once a planned deep
-    chunk, K6 once a planned per-segment phrase chunk, K8 twice a merge
+    chunk, K6 once a planned per-segment phrase chunk, K8 once a merge
     tail of the launch log and no other kernel.
     Then the first SEGMENT_PREFIX_QUERIES queries of the prefix log in one
     batch, with no warm batch, which must all run on the host engine with
@@ -2316,13 +2369,14 @@ def _compare_packed(name, kernel, twin):
     return 0.0, int(fin.sum())
 
 
-def merge_tail_vs_twin(groups: dict) -> dict:
+def merge_tail_vs_twin(groups: dict, baselines: dict) -> dict:
     """Phase 10: every merge-tail call of `groups` ({path: the tail
     records of its timed batches}) through K8 and its twin, bitwise; then
     each `kernel_cases.tail_case` at kk = 32 and 128, k = 1, 10, 40, 128,
     200, 1000 and 2000, in both forms. Returns the record of the kernels
     line: the largest call's kernel ms (`_single_ms`), twin ms (CUDA
-    events) and bound, and the calls held per path and form."""
+    events), bound and ms through each baseline build of K8, the calls
+    held per path and form, and K8's launches by kernel name."""
     import torch
 
     from tantivy_tpu_torch.ops import kernel_cases as kc
@@ -2351,6 +2405,8 @@ def merge_tail_vs_twin(groups: dict) -> dict:
           f"({rec['form']} form, W={W}, kk={kk}, k={rec['args'][4]}): "
           f"kernel {_reading_text(ms)}, twin {twin_ms:.3f} ms, bound "
           f"{bound_ms(n_bytes):.4f} ms")
+    base_ms = baseline_synthetic("merge_tail", kern, baselines,
+                                 "largest call")
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(
@@ -2372,6 +2428,7 @@ def merge_tail_vs_twin(groups: dict) -> dict:
                           f"finite slots {n_fin}, bitwise equal")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": twin_ms,
             "bound_ms": bound_ms(n_bytes), "calls_held": held,
+            "baseline_largest_ms": base_ms,
             "kernels_per_call": merge_tail.KERNELS_PER_CALL}
 
 
@@ -2760,6 +2817,7 @@ def main(argv=None) -> int:
     launches = {"group_probe": group_probe.launches,
                 "phrase_probe": phrase_probe.launches,
                 "merge_tail": merge_tail.launches}
+    main_tail_kernels = dict(merge_tail.launches_by_kernel)
     executor.launch_log, log = [], executor.launch_log
     main_tails = check_tail_launches("the main path", merge_tail.launches,
                                      log)
@@ -3132,7 +3190,8 @@ def main(argv=None) -> int:
         "fused=False route": [
             r for tm in (*seg_route.values(), *probe_timing.values(),
                          *seg_timing.values()) for r in tm["tails"]],
-        "packed executor": packed["tails"]})
+        "packed executor": packed["tails"]}, baselines)
+    stats["merge_tail"]["cuda_kernels"] = main_tail_kernels
 
     replaces = {"group_probe": "tantivy_tpu/ops/pallas_probe.py:533",
                 "phrase_probe": "tantivy_tpu/ops/pallas_phrase.py:98",

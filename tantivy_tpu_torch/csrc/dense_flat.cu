@@ -40,7 +40,7 @@
 // lane within a query, so the key needs no rank).
 //
 // Two kernels a call, k <= kMaxK (128):
-// 1. group (one CTA of 1,024 threads, `qid_group.cuh`, shared with K8): a
+// 1. group (one CTA of 1,024 threads, `qid_group.cuh`): a
 //    histogram of the qids, a block scan into CSR offsets `qptr` [Q + 1]
 //    and each query's tiles of up to kTileRows items (a query with no item
 //    has one empty tile), and a scatter of item indices into `order`,

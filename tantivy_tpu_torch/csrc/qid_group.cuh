@@ -1,5 +1,6 @@
 // Work items grouped by query on the card: the first kernel of each call of
-// K7 (dense_flat.cu) and of K8 (merge_tail.cu).
+// K7 (dense_flat.cu). (K8, merge_tail.cu, groups its rows across the whole
+// grid inside its one cooperative kernel instead.)
 //
 // One CTA of kThreads threads takes a call's W work items, each with a
 // query id, and lays them out for a select kernel that gives one warp to

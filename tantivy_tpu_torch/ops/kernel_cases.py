@@ -81,7 +81,16 @@ lanes among them; `merge_tail_model` is K8's algorithm in numpy:
   expansion: many rows of one query over few docs, each address at
   several scores in rows of different tiles;
 * "sparse": one to three live lanes a row and few rows a query, fewer
-  hits than k.
+  hits than k;
+* "ascending": W = 1,500 rows, one query owning most of them, every
+  candidate above the one before it in row and lane order (all live): in
+  that order every candidate beats the running threshold, so the buffer
+  fills and the list is selected again and again within a tile;
+* "prefix_ties": W = 1,200 rows, one query owning most of them (many
+  tiles), all its candidates but three at one score in one segment over
+  distinct docs: its tiles' k-th keys tie in their top 64 bits (score,
+  segment) and differ in the third word (the doc), so at k > 3 the
+  query's top-k reaches down to the shared key itself.
 K6 kinds (`phrase_case`), each query a leader region and partner regions
 whose docs hold planted aligned phrase positions among random ones:
 * "leader_tf16": leader lanes at tf 16 (MAX_P), up to 16 matches a doc;
@@ -117,7 +126,8 @@ BOOL_KINDS = ("every_row", "store_end")
 DEEP_KINDS = ("ladder_edge", "t16", "stage_edges")
 PACKED_KINDS = ("widths", "no_freqs", "ties")
 DENSE_KINDS = ("ties", "dead", "mid_pad", "invalid", "no_alive", "sparse")
-TAIL_KINDS = ("ties", "zeros", "long", "dups", "sparse")
+TAIL_KINDS = ("ties", "zeros", "long", "dups", "sparse", "ascending",
+              "prefix_ties")
 PHRASE_KINDS = ("leader_tf16", "partner_tf256", "window_1024", "store_end",
                 "deleted", "t8", "ties", "stage_edges")
 _WIDTHS = (0, 1, 2, 4, 8, 16, 32)
@@ -851,10 +861,19 @@ def tail_case(kind: str, kk: int = 32, seed: int = 0) -> dict:
         W, Q, n_docs, n_seg = 1200, 6, 150, 3
     elif kind == "sparse":
         W, Q = 40, 16
+    elif kind == "ascending":
+        W, Q, n_docs = 1500, 3, 1 << 20
+    elif kind == "prefix_ties":
+        W, Q, n_docs = 1200, 4, 1 << 20
     levels = rng.uniform(0.5, 9.0, 6).astype(np.float32)
     sc = levels[rng.integers(0, len(levels), (W, kk))]
     if kind in ("long", "dups"):
         sc = rng.uniform(0.5, 9.0, (W, kk)).astype(np.float32)
+    if kind == "ascending":
+        sc = (1.0 + 1e-4 * np.arange(W * kk)).astype(np.float32).reshape(
+            W, kk)
+    if kind == "prefix_ties":
+        sc = np.full((W, kk), 5.0, np.float32)
     if kind == "zeros":
         sc = np.array([0.0, -0.0, 1.0, -1.0, 0.0, -0.0],
                       np.float32)[rng.integers(0, 6, (W, kk))]
@@ -866,8 +885,17 @@ def tail_case(kind: str, kk: int = 32, seed: int = 0) -> dict:
     if kind == "long":
         qid = np.where(rng.random(W) < 0.9, 3, qid)
         qid[qid == 5] = 6           # query 5 owns no row
+    if kind in ("ascending", "prefix_ties"):
+        qid = np.where(rng.random(W) < 0.9, 0, qid)
+    if kind == "prefix_ties":
+        seg = np.where(qid == 0, 1, seg).astype(np.int32)
+        # three candidates above the tie, fewer than k = 10
+        top = rng.choice(np.flatnonzero(qid == 0), 3, replace=False)
+        sc[top, rng.integers(0, kk, 3)] = np.float32(7.5)
     qid[rng.random(W) < 0.08] = Q   # padding rows
-    dead = rng.random((W, kk)) < (0.25 if kind != "sparse" else 0.0)
+    dead = rng.random((W, kk)) < (
+        0.0 if kind in ("sparse", "ascending") else
+        0.02 if kind == "prefix_ties" else 0.25)
     if kind == "sparse":
         dead = np.ones((W, kk), bool)
         for w in range(W):
@@ -875,13 +903,14 @@ def tail_case(kind: str, kk: int = 32, seed: int = 0) -> dict:
                 False)
     # duplicate addresses of one query, planted row against row, at the
     # same score or another
-    for _ in range(W // 4):
+    for _ in range(W // 4 if kind not in ("ascending", "prefix_ties")
+                   else W // 50):
         a, b = rng.integers(0, W, 2)
         qid[b], seg[b] = qid[a], seg[a]
         j, i = rng.integers(0, kk, 2)
         dc[b, i] = dc[a, j]
         dead[b, i] = dead[a, j]
-        sc[b, i] = (sc[a, j] if rng.random() < 0.5
+        sc[b, i] = (sc[a, j] if rng.random() < 0.5 or kind == "prefix_ties"
                     else levels[rng.integers(0, len(levels))])
     if kind == "zeros":
         # one address at both zeros, in two rows of query 0
@@ -894,154 +923,260 @@ def tail_case(kind: str, kk: int = 32, seed: int = 0) -> dict:
                 num_queries=Q)
 
 
-#: rows a tile of K8's select kernel takes (`csrc/merge_tail.cu`)
-TAIL_TILE_ROWS = 32
+#: K8's constants (`csrc/merge_tail.cu`): candidates a tile holds (R * kk)
+#: and its most rows, candidates a round (kThreads * kPer), the least and
+#: the largest shared-memory sort array
+TAIL_TILE_CANDS = 8192
+TAIL_MAX_TILE_ROWS = 1024
+TAIL_ROUND = 512
+TAIL_MIN_SORT = 1024
+TAIL_SMEM_MAX_SORT = 8192
+#: the largest k whose sort arrays K8 keeps in shared memory
+TAIL_SMEM_MAX_K = TAIL_SMEM_MAX_SORT - TAIL_ROUND
+#: the calls K8's small kernel takes: at most these candidates, rows and
+#: (query, row) pairs
+TAIL_SMALL_CANDS = 16384
+TAIL_SMALL_ROWS = 2048
+TAIL_SMALL_SCAN = 1 << 22
 _NEG_INF_BITS = 0xFF800000
 _M32 = 0xFFFFFFFF
+#: the model's mutations, each a fault `merge_tail_model` must be caught by
+TAIL_MUTATIONS = ("dedup", "final_filter", "flush")
 
 
-def _image(bits: int) -> int:
+def tail_tile_rows(kk: int) -> int:
+    """Rows of one of K8's tiles at `kk`."""
+    return min(TAIL_MAX_TILE_ROWS, TAIL_TILE_CANDS // kk)
+
+
+def tail_small(n_rows: int, kk: int, k: int, num_queries: int) -> bool:
+    """Whether K8 takes a call of this shape with its small kernel."""
+    return (tail_sort_size(k) <= TAIL_SMEM_MAX_SORT
+            and n_rows * kk <= TAIL_SMALL_CANDS
+            and n_rows <= TAIL_SMALL_ROWS
+            and n_rows * num_queries <= TAIL_SMALL_SCAN)
+
+
+def tail_sort_size(k: int) -> int:
+    """Entries of K8's sort array at `k` (in global scratch above
+    TAIL_SMEM_MAX_SORT)."""
+    s = 1
+    while s < k + TAIL_ROUND:
+        s <<= 1
+    return max(s, TAIL_MIN_SORT)
+
+
+def _image(bits):
     """`merge_tail.cu`'s score_image: order-keeping, one image a bit
     pattern."""
-    return (~bits) & _M32 if bits & 0x80000000 else bits | 0x80000000
+    bits = np.asarray(bits, np.uint64)
+    return np.where(bits & 0x80000000, ~bits & _M32, bits | 0x80000000)
 
 
-def _image_bits(x: int) -> int:
-    return x & 0x7FFFFFFF if x & 0x80000000 else (~x) & _M32
+def _image_bits(x):
+    x = np.asarray(x, np.uint64)
+    return np.where(x & 0x80000000, x & 0x7FFFFFFF, ~x & _M32)
 
 
-class _TailRun:
-    """A warp's running top-k as K8's select kernel keeps it: entries are
-    96-bit keys (x, y, z), best first; `gth` the query's shared bound."""
+def _gt(e, th):
+    """Each entry's 96-bit key (columns 0-2) above `th`'s."""
+    x, y, z = e[:, 0], e[:, 1], e[:, 2]
+    return (x > th[0]) | ((x == th[0]) & (
+        (y > th[1]) | ((y == th[1]) & (z > th[2]))))
 
-    def __init__(self, k: int, seg: bool):
-        self.k, self.seg, self.lst, self.gth = k, seg, [], 0
 
-    def beats(self, e) -> bool:
-        return ((e[0] << 32) | e[1]) >= self.gth and (
-            len(self.lst) < self.k or e > self.lst[-1])
+def _prefix(e):
+    return (e[:, 0] << np.uint64(32)) | e[:, 1]
 
-    def insert(self, ents, real) -> None:
-        """One lane slot: the lanes' candidates that are real and beat the
-        thresholds, in lane order, merged as one batch."""
-        batch = [e for e, r in zip(ents, real) if r and self.beats(e)]
-        if batch:
-            self.merge(batch)
 
-    def merge(self, batch) -> None:
-        cur, k, m = self.lst, self.k, len(batch)
-        keep, dele = [True] * m, [-1] * m
+class _TailSel:
+    """A CTA's running top-k as K8 keeps it: `lst` the list, best first,
+    `buf` the candidates appended since the last selection ([n, 4] uint64:
+    score image, key words 1 and 2, 1 for a candidate), `th` the list's
+    k-th entry once it holds k, `gth` the query's shared key."""
+
+    def __init__(self, k: int, seg: bool, mutate=None):
+        self.k, self.seg, self.mutate = k, seg, mutate
+        self.S = tail_sort_size(k)
+        self.lst = np.zeros((0, 4), np.uint64)
+        self.buf = []
+        self.n = 0
+        self.gth = 0
+        self.selections = 0
+
+    def must_select(self) -> bool:
+        len_, n, k = len(self.lst), self.n, self.k
+        if self.mutate == "flush":
+            return len_ < k and 0 < n and len_ + n >= k
+        return len_ + n + TAIL_ROUND > self.S or (
+            len_ < k and n > 0 and len_ + n >= k)
+
+    def offer(self, ents, final_filter=False) -> None:
+        """One round's real candidates: those that beat the thresholds
+        join the buffer (`final_filter`: the cross-tile merge's filter on
+        the final shared key)."""
+        pre = _prefix(ents)
+        g = np.uint64(self.gth)
+        ok = (pre > g) if final_filter and self.mutate == "final_filter" \
+            else pre >= g
+        if len(self.lst) == self.k:
+            ok &= _gt(ents, self.lst[-1])
+        ents = ents[ok]
+        if self.mutate == "flush":
+            ents = ents[:max(0, self.S - len(self.lst) - self.n)]
+        if len(ents):
+            self.buf.append(ents)
+            self.n += len(ents)
+
+    def select(self) -> None:
+        """Sort list and buffer descending; the seg form keeps the first
+        entry of each address; the first k are the new list."""
+        self.selections += 1
+        a = np.concatenate([self.lst] + self.buf)
+        assert len(a) <= self.S, "the buffer overflowed its sort array"
+        a = a[np.lexsort((a[:, 3], a[:, 2], a[:, 1], a[:, 0]))[::-1]]
         if self.seg:
-            for lane, c in enumerate(batch):
-                for u, o in enumerate(batch):
-                    if u != lane and o[1:] == c[1:] and (
-                            o > c or (o == c and u < lane)):
-                        keep[lane] = False
-            at = {e[1:]: j for j, e in enumerate(cur)}
-            if len(at) != len(cur):
-                raise AssertionError("a seg-form list holds one address "
-                                     "twice")
-            for lane, c in enumerate(batch):
-                j = at.get(c[1:], -1)
-                if j >= 0:
-                    if keep[lane] and c > cur[j]:
-                        dele[lane] = j
-                    else:
-                        keep[lane] = False
-        # rank in the list: the entries at or above the candidate
-        rank = [sum(1 for e in cur if not c > e) for c in batch]
-        nxt = [None] * k
-        gone = set(d for d in dele if d >= 0)
-        for j, e in enumerate(cur):
-            if j in gone:
-                continue
-            p = (j - sum(1 for d in dele if 0 <= d < j)
-                 + sum(1 for u in range(m) if keep[u] and rank[u] <= j))
-            if p < k:
-                if nxt[p] is not None:
-                    raise AssertionError("two entries at one place")
-                nxt[p] = e
-        for lane, c in enumerate(batch):
-            if not keep[lane]:
-                continue
-            rc = sum(1 for u, o in enumerate(batch)
-                     if keep[u] and (o > c or (o == c and u < lane)))
-            p = rank[lane] - sum(1 for d in dele if 0 <= d < rank[lane]) + rc
-            if p < k:
-                if nxt[p] is not None:
-                    raise AssertionError("two entries at one place")
-                nxt[p] = c
-        n = min(k, len(cur) - len(gone) + sum(keep))
-        if any(e is None for e in nxt[:n]) or any(
-                e is not None for e in nxt[n:]):
-            raise AssertionError("the merge left a hole")
-        self.lst = nxt[:n]
+            addr = (a[:, 1] << np.uint64(32)) | a[:, 2]
+            if self.mutate == "dedup":
+                _, last = np.unique(addr[::-1], return_index=True)
+                keep = np.sort(len(a) - 1 - last)
+            else:
+                _, keep = np.unique(addr, return_index=True)
+                keep = np.sort(keep)
+            a = a[keep]
+        self.lst = a[:self.k]
+        self.buf, self.n = [], 0
+
+    def top_prefix(self) -> int:
+        return int(_prefix(self.lst[-1:])[0])
+
+
+def _run_rounds(sel, ents, real, final_filter=False, after_select=None,
+                after_round=None):
+    """K8's `run_select` on one tile's (or one query's tile lists')
+    candidates in order, a generator yielding after each round."""
+    for f0 in range(0, len(ents), TAIL_ROUND):
+        if sel.must_select():
+            sel.select()
+            if after_select:
+                after_select()
+        r = real[f0:f0 + TAIL_ROUND]
+        sel.offer(ents[f0:f0 + TAIL_ROUND][r], final_filter)
+        if after_round:
+            after_round()
+        yield
+    if sel.n > 0:
+        sel.select()
+        if after_select:
+            after_select()
 
 
 def merge_tail_model(row_sc, row_doc, row_seg, qid, k: int,
-                     num_queries: int, seed: int = 0) -> np.ndarray:
+                     num_queries: int, seed=0, mutate=None,
+                     stats=None) -> np.ndarray:
     """K8's algorithm in numpy (`csrc/merge_tail.cu`), its arithmetic as the
-    card runs it: the group pass (each query's rows in an order drawn from
-    `seed`, as the scatter's atomics leave them), tiles of
-    TAIL_TILE_ROWS rows, lane slots of a row as batches, the threshold test
-    against the tile's k-th key and the query's shared bound (tiles run
-    interleaved row by row in an order drawn from `seed`, publishing their
-    k-th key prefix after each row), the seg form's dedup (the batch's own
-    duplicates, then a strictly better key replacing the list's entry),
-    the rank merge, and the last tile's merge of the tile lists. `row_seg`
-    None is the rows form. Returns the packed [2 or 3, Q, k] int32 result.
-    """
-    rng = np.random.default_rng(seed)
+    card runs it: a call that `tail_small` admits as the small kernel runs
+    it (each query's rows in row order, one tile); any other as the grid
+    kernel: the group pass (each query's rows in an order drawn from
+    `seed`, as the scatter's atomics leave them; row order when `seed` is
+    None), tiles of `tail_tile_rows(kk)` rows, rounds of TAIL_ROUND
+    candidates, the filter against the list's k-th entry and the query's
+    shared key, the selections over list and buffer (when the next round
+    might not fit the sort array, or the list can be filled; the seg form
+    keeping each address's first entry in sorted order), the tiles of a
+    query run interleaved round by round in an order drawn from `seed`
+    (in turn when None), publishing their k-th key prefix at each
+    selection and reading the shared key after each round, and the
+    cross-tile merge of the tile lists filtered on the final shared key.
+    `row_seg` None is the rows form. `mutate` (one of TAIL_MUTATIONS)
+    plants a fault: "dedup" keeps each address's last entry, "final_filter"
+    drops tile-list entries whose top 64 bits equal the shared key,
+    "flush" never selects for room and drops what the buffer cannot hold.
+    `stats`, a dict, gets the selections run and the queries merged across
+    tiles. Returns the packed [2 or 3, Q, k] int32 result."""
+    rng = np.random.default_rng(seed) if seed is not None else None
     seg_form = row_seg is not None
     W, kk = row_sc.shape
+    R = tail_tile_rows(kk)
     bits = np.ascontiguousarray(row_sc, np.float32).view(np.uint32)
-    docs = np.ascontiguousarray(row_doc).view(np.uint32)
-    out = np.zeros((3 if seg_form else 2, num_queries, k), np.uint32)
+    docs = np.ascontiguousarray(row_doc).view(np.uint32).astype(np.uint64)
+    img = _image(bits)
+    ones = np.ones((W, kk), np.uint64)
+    if seg_form:
+        segs = np.broadcast_to(
+            (~np.asarray(row_seg).astype(np.uint64) & _M32)[:, None],
+            (W, kk))
+        ents = np.stack([img, segs, ~docs & _M32, ones], axis=-1)
+    else:
+        ents = np.stack([img, ~docs & _M32, np.full((W, kk), _M32,
+                                                    np.uint64), ones],
+                        axis=-1)
+    real = bits != _NEG_INF_BITS
+    out = np.zeros((3 if seg_form else 2, num_queries, k), np.uint64)
     out[0] = _NEG_INF_BITS
+    n_sel = n_multi = 0
 
-    def entry(w, j):
-        b, d = int(bits[w, j]), int(docs[w, j])
-        if seg_form:
-            return (_image(b), ~int(row_seg[w]) & _M32, ~d & _M32)
-        return (_image(b), ~d & _M32, _M32)
-
-    def run_row(run, w):
-        for i in range(0, kk, 32):
-            lanes = range(i, min(i + 32, kk))
-            run.insert([entry(w, j) for j in lanes],
-                       [int(bits[w, j]) != _NEG_INF_BITS for j in lanes])
-
+    small = tail_small(W, kk, k, num_queries)
     for q in range(num_queries):
-        rows = rng.permutation(np.flatnonzero(qid == q))
-        tiles = [list(rows[t:t + TAIL_TILE_ROWS])
-                 for t in range(0, len(rows), TAIL_TILE_ROWS)] or [[]]
-        runs = [_TailRun(k, seg_form) for _ in tiles]
-        if len(tiles) == 1:
-            for w in tiles[0]:
-                run_row(runs[0], w)
-            final = runs[0]
+        rows = np.flatnonzero(qid == q)
+        if small:
+            # the small kernel: the query's rows in row order, one tile
+            tiles = [rows]
         else:
-            shared = 0
-            pending = [list(t) for t in tiles]
-            while any(pending):
-                t = int(rng.choice([i for i, p in enumerate(pending) if p]))
-                run = runs[t]
-                run.gth = shared
-                run_row(run, pending[t].pop(0))
-                if len(run.lst) == k:
-                    pre = (run.lst[-1][0] << 32) | run.lst[-1][1]
-                    if pre > run.gth:
-                        shared = max(shared, pre)
-            final = _TailRun(k, seg_form)
-            src = [e for r in runs
-                   for e in r.lst + [(0, 0, 0)] * (k - len(r.lst))]
-            for e0 in range(0, len(src), 32):
-                ents = src[e0:e0 + 32]
-                final.insert(ents, [e != (0, 0, 0) for e in ents])
-        for j, e in enumerate(final.lst):
-            out[0, q, j] = _image_bits(e[0])
-            if seg_form:
-                out[1, q, j], out[2, q, j] = ~e[2] & _M32, ~e[1] & _M32
-            else:
-                out[1, q, j] = ~e[1] & _M32
-    return out.view(np.int32)
+            if rng is not None:
+                rows = rng.permutation(rows)
+            tiles = [rows[t:t + R] for t in range(0, len(rows), R)] or [rows]
+        sels = [_TailSel(k, seg_form, mutate) for _ in tiles]
+        if len(tiles) == 1:
+            t = tiles[0]
+            for _ in _run_rounds(sels[0], ents[t].reshape(-1, 4),
+                                 real[t].reshape(-1)):
+                pass
+            final = sels[0]
+        else:
+            n_multi += 1
+            shared = [0]
+
+            def publisher(sel):
+                def publish():
+                    if len(sel.lst) == k:
+                        shared[0] = max(shared[0], sel.top_prefix())
+                return publish
+
+            def reader(sel):
+                def read():
+                    sel.gth = max(sel.gth, shared[0])
+                return read
+
+            runs = [_run_rounds(sel, ents[t].reshape(-1, 4),
+                                real[t].reshape(-1), False,
+                                publisher(sel), reader(sel))
+                    for sel, t in zip(sels, tiles)]
+            live = list(range(len(runs)))
+            while live:
+                i = (live[int(rng.integers(len(live)))] if rng is not None
+                     else live[0])
+                if next(runs[i], StopIteration) is StopIteration:
+                    live.remove(i)
+            pad = np.zeros((0, 4), np.uint64)
+            lists = np.concatenate([
+                np.concatenate([sel.lst, np.zeros(
+                    (k - len(sel.lst), 4), np.uint64)]) for sel in sels
+            ] + [pad])
+            final = _TailSel(k, seg_form, mutate)
+            final.gth = shared[0]
+            for _ in _run_rounds(final, lists, lists[:, 3] != 0, True):
+                pass
+            n_sel += final.selections
+        n_sel += sum(sel.selections for sel in sels)
+        lst = final.lst
+        m = len(lst)
+        out[0, q, :m] = _image_bits(lst[:, 0])
+        if seg_form:
+            out[1, q, :m] = ~lst[:, 2] & _M32
+            out[2, q, :m] = ~lst[:, 1] & _M32
+        else:
+            out[1, q, :m] = ~lst[:, 1] & _M32
+    if stats is not None:
+        stats.update(selections=n_sel, merged_queries=n_multi)
+    return out.astype(np.uint32).view(np.int32)

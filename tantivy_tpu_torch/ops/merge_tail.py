@@ -22,10 +22,14 @@ callers return it:
 -inf candidates are dropped, rows whose qid lies outside [0, num_queries)
 ignored; -inf / 0 / 0 past a query's hits.
 
-Dispatch: CPU tensors take the twin; CUDA tensors launch K8's two kernels,
-`group` and `select` (both count in `launches`), at any k. When `rec` is
-a dict (the launch-log record of the kernel round whose candidates these
-are), the call's form and inputs are stored in it under "tail".
+Dispatch: CPU tensors take the twin; CUDA tensors launch K8, one kernel a
+call, at any k (it counts in `launches`, and by name in
+`launches_by_kernel`: `tail_small` for a small call, one CTA a query;
+else `tail`, the cooperative grid kernel, or `tail_global`, the same with
+its sort arrays in global scratch for a k above `smem_max_k()`; the C
+side picks the kernel from the call's shape). When `rec` is a dict (the
+launch-log record of the kernel round whose candidates these are), the
+call's form and inputs are stored in it under "tail".
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ from .probe_scorer import (
 )
 
 #: CUDA launches since the last reset (the CPU twin does not count), and
-#: the same by kernel (`group`, `select`); batches in flight on several
-#: threads add to them under `_count_lock`
+#: the same by kernel (`tail_small`, `tail`, `tail_global`); batches in
+#: flight on several threads add to them under `_count_lock`
 launches = 0
 launches_by_kernel: dict[str, int] = {}
 _count_lock = threading.Lock()
@@ -53,7 +57,9 @@ _count_lock = threading.Lock()
 #: the largest kk the kernels take
 MAX_KK = 128
 #: the kernels that one call launches
-KERNELS_PER_CALL = 2
+KERNELS_PER_CALL = 1
+#: each kernel `merge_tail_launch` reports by its name
+PATH_NAMES = ("tail", "tail_global", "tail_small")
 
 
 def topk_from_rows(row_sc, row_doc, qid, k: int, num_queries: int, *,
@@ -115,23 +121,40 @@ def _tail(seg: bool, row_sc, row_doc, row_seg, qid, k: int,
     dev = row_sc.device
     if dev.type == "cpu":
         return twin(row_sc, row_doc, row_seg, qid, k, num_queries)
-    lib = _lib()
     W, kk = row_sc.shape
     out = torch.empty((3 if seg else 2, num_queries, k), dtype=torch.int32,
                       device=dev)
-    n = lib.merge_tail_scratch_bytes(W, num_queries, k)
-    scratch = torch.empty(n, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _counted(lib.merge_tail_group_launch(
-            qid.data_ptr(), W, num_queries, k, scratch.data_ptr(), stream,
-        ), "group")
-        _counted(lib.merge_tail_select_launch(
-            1 if seg else 0, row_sc.data_ptr(), row_doc.data_ptr(),
-            row_seg.data_ptr() if seg else None, W, kk, num_queries, k,
-            scratch.data_ptr(), out.data_ptr(), stream,
-        ), "select")
+        _counted(*_launch(seg, row_sc, row_doc, row_seg, qid, W, kk, k,
+                          num_queries, out, stream))
     return out
+
+
+def _launch(seg: bool, row_sc, row_doc, row_seg, qid, W: int, kk: int,
+            k: int, num_queries: int, out, stream):
+    """Launches one call's kernel into `out` on `stream`: (the CUDA error
+    code, the kernel's name)."""
+    lib = _lib()
+    n = lib.merge_tail_scratch_bytes(1 if seg else 0, W, kk, num_queries,
+                                     k)
+    if n < 0:
+        raise RuntimeError("merge_tail: no scratch size for this call on "
+                           "the current device")
+    scratch = torch.empty(n, dtype=torch.uint8, device=out.device)
+    path = ctypes.c_int(0)
+    err = lib.merge_tail_launch(
+        1 if seg else 0, row_sc.data_ptr(), row_doc.data_ptr(),
+        row_seg.data_ptr() if seg else None, qid.data_ptr(), W, kk,
+        num_queries, k, scratch.data_ptr(), out.data_ptr(), stream,
+        ctypes.byref(path))
+    return err, PATH_NAMES[path.value]
+
+
+def smem_max_k() -> int:
+    """The largest k whose sort arrays the kernel keeps in shared
+    memory."""
+    return _lib().merge_tail_smem_max_k()
 
 
 def reset_counts() -> None:
@@ -156,16 +179,15 @@ def signatures() -> dict:
     """Each C entry point's ctypes (argtypes, restype)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     return {
-        "merge_tail_scratch_bytes": ([i, i, i], ctypes.c_longlong),
-        "merge_tail_group_launch": ([
-            p, i, i, i,            # qids, n_rows, num_queries, k
-            p, p,                  # scratch, stream
-        ], ctypes.c_int),
-        "merge_tail_select_launch": ([
-            i, p, p, p,            # seg_form, scores, docs, segs
+        "merge_tail_scratch_bytes": ([i, i, i, i, i], ctypes.c_longlong),
+        "merge_tail_smem_max_k": ([], ctypes.c_int),
+        "merge_tail_launch": ([
+            i, p, p, p, p,         # seg_form, scores, docs, segs, qids
             i, i, i, i,            # n_rows, kk, num_queries, k
             p, p, p,               # scratch, out, stream
+            ctypes.POINTER(i),     # path: the kernel launched
         ], ctypes.c_int),
+        "merge_tail_occupancy": ([i, i, i, i, p, p, p], ctypes.c_int),
     }
 
 

@@ -9,12 +9,14 @@ as f32 bits:
   -0.0 in one query, one query of over a hundred 32-row tiles and one of
   none, planted cross-tile duplicates, k above a query's hits;
 * `kernel_cases.merge_tail_model`, kernel K8's algorithm in numpy, on the
-  same cases;
+  same cases, at k around the largest its shared-memory selection holds,
+  and with each of its planted faults (`TAIL_MUTATIONS`) caught;
 * K8's wrapper (`ops/merge_tail.py`) on CPU tensors (the twin), and the
   executor's tails going through it on both routes.
 The `cuda` cases hold K8 against its twin on the card, bitwise, on every
-tail case, at the fused chains' shapes and at k up to 2,000. Inputs are made from seeds with
-numpy."""
+tail case, at the fused chains' shapes and at k up to 2,000 and on both
+sides of the largest k its shared-memory selection holds. Inputs are made
+from seeds with numpy."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -175,24 +177,116 @@ def test_twins_match_reference_on_tail_cases(kind, form, kk):
 @pytest.mark.parametrize("kind", kc.TAIL_KINDS)
 def test_numpy_model_of_k8_matches_reference(kind, form):
     """K8's algorithm in numpy (`kernel_cases.merge_tail_model`: tiles of
-    32 rows, lane-slot batches, the tile's and the query's shared k-th
-    keys, the seg form's strictly-better dedup, the rank merge and the last
-    tile's merge of the tile lists) equals the reference, whatever order
-    the scatter leaves a query's rows in and its tiles run in."""
+    8,192 candidates, rounds of 512 filtered against the list's k-th entry
+    and the query's shared key, selections over list and buffer with the
+    seg form's first-of-address dedup, the cross-tile merge of the tile
+    lists filtered on the final shared key) equals the reference, whatever
+    order the scatter leaves a query's rows in and its tiles run in (seed
+    None: row order, tiles in turn). At kk = 32 "ties", "zeros" and
+    "sparse" are small calls (one tile a query, rows in row order), the
+    others take the grid kernel's tiles."""
     case = kc.tail_case(kind, kk=32)
+    assert kc.tail_small(case["qid"].shape[0], 32, 40,
+                         case["num_queries"]) == (
+        kind in ("ties", "zeros", "sparse"))
     seg = case["row_seg"] if form == "seg" else None
-    for k, seed in ((1, 0), (10, 1), (10, 2), (40, 3)):
+    for k, seed in ((1, 0), (10, 1), (10, 2), (40, 3), (10, None)):
         got = kc.merge_tail_model(case["row_sc"], case["row_doc"], seg,
                                   case["qid"], k, case["num_queries"],
                                   seed=seed)
         assert np.array_equal(got, reference_tail(case, form, k)), (k, seed)
 
 
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kk", [32, 128])
+def test_numpy_model_keeps_ties_at_the_shared_key(kk, form):
+    """"prefix_ties": one query of many tiles whose k-th keys tie in their
+    top 64 bits (score and segment) and differ in the third word (the
+    doc). The query's shared key is that prefix, its top-k holds entries at
+    it, and the cross-tile merge keeps them: the filter drops only entries
+    strictly below the shared key."""
+    case = kc.tail_case("prefix_ties", kk=kk)
+    seg = case["row_seg"] if form == "seg" else None
+    stats = {}
+    for k in (10, 40):
+        got = kc.merge_tail_model(case["row_sc"], case["row_doc"], seg,
+                                  case["qid"], k, case["num_queries"],
+                                  seed=k, stats=stats)
+        want = reference_tail(case, form, k)
+        assert np.array_equal(got, want), k
+        assert stats["merged_queries"] >= 1
+        # the top-k reaches the tied score, below the three above it
+        assert (want[0, 0, 3:k] == np.float32(5.0).view(np.int32)).all()
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kk", [32, 128])
+def test_numpy_model_when_every_candidate_beats_the_threshold(kk, form):
+    """"ascending" in row order (seed None, as the scatter's atomics leave
+    a warp's rows): every candidate beats the running threshold, so the
+    buffer fills every few rounds and the list is selected again and
+    again within a tile; the result still equals the reference."""
+    case = kc.tail_case("ascending", kk=kk)
+    seg = case["row_seg"] if form == "seg" else None
+    for k in (10, 128, 700):
+        stats = {}
+        got = kc.merge_tail_model(case["row_sc"], case["row_doc"], seg,
+                                  case["qid"], k, case["num_queries"],
+                                  seed=None, stats=stats)
+        assert np.array_equal(got, reference_tail(case, form, k)), k
+        rows = int((case["qid"] == 0).sum())
+        # at least a selection each time the buffer fills
+        assert stats["selections"] > rows * kk // kc.tail_sort_size(k)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_numpy_model_around_the_shared_memory_k(form):
+    """The model at k just under and just over the largest k whose sort
+    arrays K8 keeps in shared memory (`TAIL_SMEM_MAX_K`: above it the
+    arrays are in global scratch, twice the size): the long query's tiles
+    and its cross-tile merge select over lists of thousands."""
+    case = kc.tail_case("long", kk=32)
+    for k in (kc.TAIL_SMEM_MAX_K, kc.TAIL_SMEM_MAX_K + 1):
+        seg = case["row_seg"] if form == "seg" else None
+        got = kc.merge_tail_model(case["row_sc"], case["row_doc"], seg,
+                                  case["qid"], k, case["num_queries"],
+                                  seed=k)
+        assert np.array_equal(got, reference_tail(case, form, k)), k
+    assert kc.tail_sort_size(kc.TAIL_SMEM_MAX_K) == kc.TAIL_SMEM_MAX_SORT
+    assert kc.tail_sort_size(kc.TAIL_SMEM_MAX_K + 1) > kc.TAIL_SMEM_MAX_SORT
+
+
+#: each planted fault of the model and a call that shows it: (kind, form,
+#: kk, k, seed)
+MUTATION_CASES = {
+    "dedup": ("dups", "seg", 128, 10, 0),
+    "final_filter": ("prefix_ties", "seg", 32, 10, 0),
+    "flush": ("ascending", "rows", 32, 10, None),
+}
+
+
+@pytest.mark.parametrize("mutate", kc.TAIL_MUTATIONS)
+def test_numpy_model_catches_its_mutations(mutate):
+    """Each planted fault of the model (keeping each address's last entry,
+    a final-key filter that drops entries at the shared key, a buffer
+    that drops what it cannot hold instead of selecting first) gives
+    another result than the reference on its case, which the faultless
+    model matches."""
+    kind, form, kk, k, seed = MUTATION_CASES[mutate]
+    case = kc.tail_case(kind, kk=kk)
+    seg = case["row_seg"] if form == "seg" else None
+    want = reference_tail(case, form, k)
+    args = (case["row_sc"], case["row_doc"], seg, case["qid"], k,
+            case["num_queries"])
+    assert np.array_equal(kc.merge_tail_model(*args, seed=seed), want)
+    assert not np.array_equal(
+        kc.merge_tail_model(*args, seed=seed, mutate=mutate), want)
+
+
 @pytest.mark.parametrize("k", [200, 300])
 def test_numpy_model_above_k_128(k):
-    """The model at k above 128, where a lane holds its list entries in
-    several 128-entry chunks: the long query's tiles each fill a list of
-    k, and the dups' cross-tile duplicates meet in the last tile's
+    """The model at k above 128: the long query's tiles each fill a list
+    of k, and the dups' cross-tile duplicates meet in the cross-tile
     merge."""
     for kind in ("long", "dups"):
         case = kc.tail_case(kind, kk=32)
@@ -206,8 +300,8 @@ def test_numpy_model_above_k_128(k):
 
 
 def test_numpy_model_at_kk_and_k_128():
-    """The model at K8's caps, kk = k = 128 (four lane slots a row, four
-    list entries a lane), over the cross-tile duplicates of "dups"."""
+    """The model at K8's caps, kk = k = 128 (tiles of 64 rows), over the
+    cross-tile duplicates of "dups"."""
     case = kc.tail_case("dups", kk=128)
     got = kc.merge_tail_model(case["row_sc"], case["row_doc"],
                               case["row_seg"], case["qid"], 128,
@@ -247,11 +341,11 @@ def test_signed_zeros_keep_two_keys(form):
 
 @pytest.mark.parametrize("form", FORMS)
 def test_long_query_and_empty_query(form):
-    """One query owns most of W = 4,096 rows (over a hundred of K8's
-    32-row tiles), another owns none: the empty query's slots are -inf / 0
-    / 0, and the long one's top-k equals the reference's."""
+    """One query owns most of W = 4,096 rows (over a dozen of K8's
+    256-row tiles at kk = 32), another owns none: the empty query's slots
+    are -inf / 0 / 0, and the long one's top-k equals the reference's."""
     case = kc.tail_case("long", kk=32)
-    assert (case["qid"] == 3).sum() > 100 * kc.TAIL_TILE_ROWS
+    assert (case["qid"] == 3).sum() > 12 * kc.tail_tile_rows(32)
     assert not (case["qid"] == 5).any()
     out = mt.twin(*tail_args(case, form), 128, case["num_queries"]).numpy()
     assert np.array_equal(out, reference_tail(case, form, 128))
@@ -308,6 +402,25 @@ def test_wrapper_checks_its_inputs():
     wide = torch.zeros((4, 129), dtype=torch.float32)
     with pytest.raises(ValueError):
         mt.topk_from_rows(wide, wide.int(), qid[:4], 10, Q)
+
+
+def test_wrapper_sends_only_cpu_tensors_to_the_twin(monkeypatch):
+    """The twin takes CPU tensors only: tensors on another device raise
+    before any launch or twin call, and the twin is never reached from
+    the launch path (a CUDA tensor launches the kernel or raises)."""
+    case = kc.tail_case("ties")
+    Q = case["num_queries"]
+    calls = []
+    monkeypatch.setattr(mt, "twin", lambda *a: calls.append(a))
+    meta = [a.to("meta") if a is not None else None
+            for a in tail_args(case, "seg")]
+    for form in FORMS:
+        with pytest.raises(ValueError):
+            call(form, meta, 10, Q)
+    assert not calls
+    src = __import__("inspect").getsource(mt._tail)
+    assert src.count("twin(") == 1
+    assert src.index('if dev.type == "cpu":') < src.index("twin(")
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -372,17 +485,21 @@ def _cuda():
 @pytest.mark.parametrize("kind", kc.TAIL_KINDS)
 def test_kernel_matches_twin_on_cuda(kind, form, kk):
     """K8 against its twin, bitwise, on every tail case at k = 1, 10, 40,
-    128 and 200; each call launches its two kernels."""
+    128 and 200; each call is one launch, of the small kernel where
+    `kernel_cases.tail_small` admits the call (ties, zeros and sparse at
+    kk = 32), else of the grid kernel."""
     _cuda()
     case = kc.tail_case(kind, kk=kk)
     Q = case["num_queries"]
     want_args = tail_args(case, form)
     args = tail_args(case, form, "cuda")
     for k in TAIL_KS:
-        n0 = mt.launches
+        mt.reset_counts()
         got = call(form, args, k, Q)
         torch.cuda.synchronize()
-        assert mt.launches - n0 == mt.KERNELS_PER_CALL
+        small = kc.tail_small(case["qid"].shape[0], kk, k, Q)
+        assert mt.launches == mt.KERNELS_PER_CALL
+        assert mt.launches_by_kernel == {"tail_small" if small else "tail": 1}
         assert torch.equal(got.cpu(), mt.twin(*want_args, k, Q)), k
 
 
@@ -421,9 +538,8 @@ def test_kernel_at_real_shapes_on_cuda(form, shape):
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("kind", ["long", "dups", "sparse"])
 def test_large_k_runs_the_kernel_on_cuda(kind, form, k):
-    """A k far above 128 launches K8 as well: at k = 1,000 its running
-    lists take most of the opt-in shared memory, at k = 2,000 they move to
-    global scratch; bitwise equal to the twin either way."""
+    """A k far above 128 launches K8 as well (sort arrays of 2,048 and
+    4,096 entries in shared memory); bitwise equal to the twin."""
     _cuda()
     case = kc.tail_case(kind, kk=128)
     Q = case["num_queries"]
@@ -432,3 +548,75 @@ def test_large_k_runs_the_kernel_on_cuda(kind, form, k):
     torch.cuda.synchronize()
     assert mt.launches - n0 == mt.KERNELS_PER_CALL
     assert torch.equal(got.cpu(), mt.twin(*tail_args(case, form), k, Q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+def test_kernel_around_the_shared_memory_k_on_cuda(form):
+    """K8 at k just under and just over the largest k whose sort arrays it
+    keeps in shared memory: the first counts as `tail`, the second as
+    `tail_global` (its arrays in global scratch); both bitwise equal to
+    the twin."""
+    _cuda()
+    case = kc.tail_case("long", kk=32)
+    Q = case["num_queries"]
+    assert mt.smem_max_k() == kc.TAIL_SMEM_MAX_K
+    for k, name in ((kc.TAIL_SMEM_MAX_K, "tail"),
+                    (kc.TAIL_SMEM_MAX_K + 1, "tail_global")):
+        mt.reset_counts()
+        got = call(form, tail_args(case, form, "cuda"), k, Q)
+        torch.cuda.synchronize()
+        assert mt.launches_by_kernel == {name: 1}
+        assert torch.equal(got.cpu(), mt.twin(*tail_args(case, form), k, Q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kind", ["long", "dups"])
+def test_kernel_across_k_on_cuda(kind, form):
+    """K8 against its twin over a sweep of k on queries of many tiles
+    (sort arrays of 1,024 to 8,192 entries, lists that fill their sort
+    array nearly whole), each call twice: the tiles' shared key makes
+    their lists depend on timing, the result must not."""
+    _cuda()
+    case = kc.tail_case(kind, kk=128)
+    Q = case["num_queries"]
+    args = tail_args(case, form, "cuda")
+    for k in (100, 500, 1500, 1800, 1900, 2000, 2048, 2100, 3000, 4000):
+        want = mt.twin(*args, k, Q)
+        for _ in range(2):
+            assert torch.equal(call(form, args, k, Q), want), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+def test_kernel_from_two_threads_on_cuda(form):
+    """Calls of two threads at once, each on its own stream, with sort
+    arrays of 4,096 and 8,192 entries (more than 48 KB of shared memory,
+    which the kernel is opted in to once): each bitwise equal to the
+    twin."""
+    import threading
+
+    _cuda()
+    case = kc.tail_case("long", kk=32)
+    Q = case["num_queries"]
+    args = tail_args(case, form, "cuda")
+    wants = {k: mt.twin(*args, k, Q) for k in (3600, 7000)}
+    torch.cuda.synchronize()
+    bad = []
+
+    def run(k):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            for _ in range(8):
+                got = call(form, args, k, Q)
+                stream.synchronize()
+                if not torch.equal(got, wants[k]):
+                    bad.append(k)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in wants]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad
