@@ -71,9 +71,13 @@ from ..ops.phrase_scorer import T_MAX as PHRASE_T_MAX
 from ..postings.format import TERMINATED as TERMINATED_U32
 from ..query.bm25 import Bm25Weight
 from ..searcher import DocAddress, Searcher
-from ..utils.trace import debug_time
+from ..utils.trace import debug_time, tracer
 
 NEG_INF = np.float32(-np.inf)
+
+#: the `plan_stats` keys the tracer also counts while on, by time, so that a
+#: trace can read the planner's share of bounded blocks it shipped
+_TRACED_PLAN = ("ub_blocks", "wand_p1", "wand_p2")
 
 #: the kernels `prewarm` loads, by (mode, fused): the route's and, on the
 #: fused route, the per-segment paths' too
@@ -190,6 +194,12 @@ def _chunk_hits(hits: list, k: int):
         (np.float32(v[i]), DocAddress(int(s[i]), int(d[i])))
         for i in range(len(v))
     ]
+
+
+def _hits_of(per_query: list, k: int) -> list:
+    """Each query's public hit list from its chunks."""
+    with debug_time("batch.hits"):
+        return [_chunk_hits(hits, k) for hits in per_query]
 
 
 def _topk_thresholds(per_query, k):
@@ -557,7 +567,7 @@ class BatchExecutor:
         with debug_time("term.collect2", n=len(pending2)):
             self._collect_flat(pending2, per_query)
 
-        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
+        return _hits_of(per_query, k)
 
     # ------------------------------------------------------------------
     # boolean batches
@@ -643,6 +653,8 @@ class BatchExecutor:
     def _count_plan(self, kind: str, n: int = 1) -> None:
         with self._stats_lock:
             self.plan_stats[kind] = self.plan_stats.get(kind, 0) + n
+        if tracer.enabled and kind in _TRACED_PLAN:
+            tracer.count(f"plan_stats.{kind}", n)
 
     @staticmethod
     def _prow_tier(n: int, Tb: int = 2) -> int:
@@ -656,10 +668,11 @@ class BatchExecutor:
         """Exact host evaluation of one query over one segment, as a hit
         CHUNK (scores, segs, docs arrays) — the per-segment fallback for
         plans the device cannot run soundly."""
-        weight = query.weight(self.searcher, True)
-        res = weight.topk(reader, k)  # alive-filtered, may prune
-        docs, scores = res.docs, res.scores
-        order = np.lexsort((docs, _sortable_desc_np(scores)))[:k]
+        with debug_time("host.segment_topk"):
+            weight = query.weight(self.searcher, True)
+            res = weight.topk(reader, k)  # alive-filtered, may prune
+            docs, scores = res.docs, res.scores
+            order = np.lexsort((docs, _sortable_desc_np(scores)))[:k]
         return (
             scores[order].astype(np.float32, copy=False),
             np.full(len(order), seg_ord, dtype=np.int32),
@@ -725,6 +738,8 @@ class BatchExecutor:
                     self._search_boolean_fused(queries[lo : lo + max_q], k)
                 )
             return out
+        _dtw = debug_time("bool.prepare")
+        _dtw.__enter__()
         Qp = _q_tier(Q)
         kind_of = {
             Occur.MUST: ps.KIND_MUST,
@@ -768,6 +783,7 @@ class BatchExecutor:
         M1 = _m1()
         per_query: list[list] = [[] for _ in range(Q)]
         per_tb: dict[int, dict] = {}
+        _dtw.__exit__(None, None, None)
 
         _dt1 = debug_time("bool.plan_fused")
         _dt1.__enter__()
@@ -840,6 +856,10 @@ class BatchExecutor:
         _dtp1.__exit__(None, None, None)
         with debug_time("bool.plan_details", n=len(ub_calls)):
             dets = batched_clause_details(fused, ub_calls)
+        # counted once a batch (`plan_stats`): blocks bounded, candidates,
+        # phase-1 blocks
+        n_ub = sum(c[1] for c in ub_calls)
+        n_cand = n_p1 = 0
 
         _dtp2 = debug_time("bool.plan_pass2")
         _dtp2.__enter__()
@@ -946,6 +966,7 @@ class BatchExecutor:
                         # per-slice UB: same ordered f32 sum, with this
                         # clause's range-max taken over the slice's
                         # window rows only (tighter, still a bound)
+                        n_ub += tot
                         ov = fused.rmax.query(
                             np.maximum(starts, np.repeat(i0r, nsl)),
                             np.minimum(
@@ -1033,10 +1054,7 @@ class BatchExecutor:
                     len(all_ub) - M1
                 ]
             taken = 0
-            self._count_plan(
-                "wand_candidates",
-                sum(len(s[2]) for s in staged),
-            )
+            n_cand += sum(len(s[2]) for s in staged)
             for ci, grp, ids, ub, eff, jlo, wid, frc in staged:
                 pick = ub >= cut
                 extra = int(pick.sum()) - (M1 - taken)
@@ -1044,7 +1062,7 @@ class BatchExecutor:
                     selidx = np.nonzero(pick)[0]
                     pick[selidx[len(selidx) - extra:]] = False
                 taken += int(pick.sum())
-                self._count_plan("wand_p1", int(pick.sum()))
+                n_p1 += int(pick.sum())
                 if pick.any():
                     g["p1"].append(
                         (prow, qi, seg_ord, ci, grp, ids[pick],
@@ -1056,6 +1074,10 @@ class BatchExecutor:
                          ub[~pick], eff[~pick], jlo[~pick], wid[~pick],
                          frc[~pick])
                     )
+        self._count_plan("ub_blocks", n_ub)
+        if n_cand:
+            self._count_plan("wand_candidates", n_cand)
+            self._count_plan("wand_p1", n_p1)
         _dtp2.__exit__(None, None, None)
         _dt1.__exit__(None, None, None)
 
@@ -1111,7 +1133,8 @@ class BatchExecutor:
         pending1 = []
         tb_tables = {}
         for Tb, g in per_tb.items():
-            tb_tables[Tb] = finalize_tables(g, Tb)
+            with debug_time("bool.tables"):
+                tb_tables[Tb] = finalize_tables(g, Tb)
             if not g["p1"]:
                 continue
             with debug_time("bool.fused_dispatch1"):
@@ -1120,6 +1143,8 @@ class BatchExecutor:
                 ))
         with debug_time("bool.collect1", n=len(pending1)):
             self._collect_flat(pending1, per_query)
+        _dt2 = debug_time("bool.phase2")
+        _dt2.__enter__()
         th, th_seg, th_doc = _topk_thresholds(per_query, k)
 
         # ---- phase 2: survivors only, in up to two UB-ordered rounds ------
@@ -1226,6 +1251,7 @@ class BatchExecutor:
                 if m.any():
                     new_surv[Tb] = _sel_flat(rest, m)
             surv = new_surv
+        _dt2.__exit__(None, None, None)
 
         pending2 = []
         for Tb, f in surv.items():
@@ -1240,7 +1266,14 @@ class BatchExecutor:
         with debug_time("bool.collect2", n=len(pending2)):
             self._collect_flat(pending2, per_query)
 
-        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
+        # the plan's per-item arrays are freed here, under a span, and not
+        # after the return, where no span would hold the time they take (a
+        # large local left out of this list frees after the return, outside
+        # every span but the batch's root)
+        with debug_time("bool.release"):
+            plans = ub_calls = dets = det_of = per_tb = g = None
+            surv = new_surv = f = tb_tables = pending1 = pending2 = None
+        return _hits_of(per_query, k)
 
     # ------------------------------------------------------------------
     # per-segment boolean batches (Block-WAND over each segment's store)
@@ -1552,7 +1585,7 @@ class BatchExecutor:
         with debug_time("bool.collect2", n=len(pending2)):
             self._collect_flat(pending2, per_query)
 
-        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
+        return _hits_of(per_query, k)
 
     # ------------------------------------------------------------------
     # phrase batches
@@ -1864,7 +1897,7 @@ class BatchExecutor:
         with debug_time("phrase_seg.collect", n=len(pending2)):
             self._collect_flat(pending2, per_query)
 
-        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
+        return _hits_of(per_query, k)
 
     def _search_phrase_fused(self, queries: list, k: int):
         """Fused phrase batch: the position-probe kernel, one launch round
@@ -1893,12 +1926,13 @@ class BatchExecutor:
         Q = len(queries)
         if Q == 0:
             return []
-        readers = self.searcher.segment_readers()
-        # plan rows (one per (query, segment, expansion) with all terms
-        # present) fill a fixed plan-row tier: sub-batch beyond it
-        max_tb = max(t_bucket(len(q.term_bytes)) for q in queries)
-        tier = self._prow_tier(0, max_tb)
-        rows_of = [self._phrase_plan_rows(q) for q in queries]
+        with debug_time("phrase.prepare"):
+            readers = self.searcher.segment_readers()
+            # plan rows (one per (query, segment, expansion) with all
+            # terms present) fill a fixed plan-row tier: sub-batch beyond
+            max_tb = max(t_bucket(len(q.term_bytes)) for q in queries)
+            tier = self._prow_tier(0, max_tb)
+            rows_of = [self._phrase_plan_rows(q) for q in queries]
         if Q > 1 and (Q > _Q_FIXED or sum(rows_of) > tier):
             # greedy row-budget chunking (recursing per chunk)
             out = []
@@ -1916,7 +1950,10 @@ class BatchExecutor:
             from ..collector import TopDocs
 
             self._count_fallback("phrase_rows_overflow")
-            return [self.searcher.search(queries[0], TopDocs(k))]
+            with debug_time("host.search"):
+                return [self.searcher.search(queries[0], TopDocs(k))]
+        _dtw = debug_time("phrase.prepare")
+        _dtw.__enter__()
         Qp = _q_tier(Q)
         wcache: dict = {}
 
@@ -1944,6 +1981,7 @@ class BatchExecutor:
         M1 = _m1()
         per_query: list[list] = [[] for _ in range(Q)]
         groups: dict[int, dict] = {}  # keyed by n_partners bucket
+        _dtw.__exit__(None, None, None)
 
         def overlaps(ids, s2, n2):
             lo = fused.blk_base[ids].astype(np.uint64)
@@ -2148,6 +2186,10 @@ class BatchExecutor:
                          offsets)
                     )
         batched = plan_anchors_batched(anchor_calls)
+        # counted once a batch (`plan_stats`): blocks bounded, re-anchored
+        # plans, candidates, phase-1 blocks
+        n_ub = sum(len(c[4]) for c in anchor_calls)
+        n_reanchor = n_cand = n_p1 = 0
 
         fell: set = set()  # (qi, seg_ord) already host-fallbacked
         pending_rows: dict[int, list] = {}  # qi -> [(Sb, prow, seg, staged)]
@@ -2189,6 +2231,7 @@ class BatchExecutor:
                         )
                     )
                 plan2 = plan_anchor(w, t_alt, regions, offsets, union)
+                n_ub += len(union)
                 if plan2["bad"].any():
                     fallback = True
                 else:
@@ -2196,7 +2239,7 @@ class BatchExecutor:
                     good = ~plan["bad"]
                     plan = {kk_: vv[good] for kk_, vv in plan.items()}
                     staged = [(leader, plan), (t_alt, plan2)]
-                    self._count_plan("phrase_reanchor")
+                    n_reanchor += 1
             if fallback:
                 # once per (query, segment): the host result is the exact
                 # union-max over ALL expansions, so any expansion rows of
@@ -2216,9 +2259,7 @@ class BatchExecutor:
                 g = groups[Sb] = {"qw_rows": [], "p1": [], "rest": []}
             prow = len(g["qw_rows"])
             g["qw_rows"].append(w)
-            self._count_plan(
-                "wand_candidates", sum(len(p["ids"]) for _, p in staged)
-            )
+            n_cand += sum(len(p["ids"]) for _, p in staged)
             pending_rows.setdefault(qi, []).append(
                 (Sb, prow, seg_ord, staged)
             )
@@ -2250,13 +2291,19 @@ class BatchExecutor:
                         selidx = np.nonzero(pick)[0]
                         pick[selidx[len(selidx) - extra:]] = False
                     taken += int(pick.sum())
-                    self._count_plan("wand_p1", int(pick.sum()))
+                    n_p1 += int(pick.sum())
                     for name, sel in (("p1", pick), ("rest", ~pick)):
                         if sel.any():
                             g[name].append(
                                 (prow, qi, seg_ord,
                                  {kk_: vv[sel] for kk_, vv in p.items()})
                             )
+        self._count_plan("ub_blocks", n_ub)
+        if n_reanchor:
+            self._count_plan("phrase_reanchor", n_reanchor)
+        if n_cand:
+            self._count_plan("wand_candidates", n_cand)
+            self._count_plan("wand_p1", n_p1)
 
         def build_work(items):
             cols = {
@@ -2309,6 +2356,8 @@ class BatchExecutor:
                     pending1.extend(launch(g["p1"], qw_table, Sb))
         with debug_time("phrase.collect1", n=len(pending1)):
             self._collect_flat(pending1, per_query)
+        _dt2 = debug_time("phrase.phase2")
+        _dt2.__enter__()
         th, th_seg, th_doc = _topk_thresholds(per_query, k)
 
         # phase 2 with the same threshold RATCHET as the boolean path: when
@@ -2376,6 +2425,7 @@ class BatchExecutor:
                 self._collect_flat(pending_a, per_query)
             th, th_seg, th_doc = _topk_thresholds(per_query, k)
             surv = _keep_groups(remainder, th, th_seg, th_doc)
+        _dt2.__exit__(None, None, None)
 
         pending2 = []
         with debug_time("phrase.dispatch2"):
@@ -2391,7 +2441,15 @@ class BatchExecutor:
         with debug_time("phrase.collect2", n=len(pending2)):
             self._collect_flat(pending2, per_query)
 
-        return [_chunk_hits(per_query[qi], k) for qi in range(Q)]
+        # the plan's per-item arrays are freed here, under a span, and not
+        # after the return, where no span would hold the time they take (a
+        # large local left out of this list frees after the return, outside
+        # every span but the batch's root)
+        with debug_time("phrase.release"):
+            phrase_plans = anchor_calls = batched = pending_rows = None
+            groups = g = surv = remainder = items = tb_qw = None
+            pending1 = pending2 = None
+        return _hits_of(per_query, k)
 
     # ------------------------------------------------------------------
     # routing
@@ -2407,7 +2465,17 @@ class BatchExecutor:
         on the host engine; the phrase-family ones among them count in
         `host_routed`. The per-segment route (`fused=False`, and packed
         mode) routes as `_search_batch_segment` says.
-        Returns list[list[(score, DocAddress)]]."""
+        Returns list[list[(score, DocAddress)]].
+
+        Traced as span `batch.search`, which holds every other span the
+        batch records."""
+        with debug_time("batch.search"):
+            if not self.fused:
+                return self._search_batch_segment(queries, k)
+            return self._search_batch_fused(queries, k)
+
+    def _search_batch_fused(self, queries: list, k: int):
+        """`search_batch` on the fused route."""
         from ..collector import TopDocs
         from ..query import (
             BooleanQuery,
@@ -2416,10 +2484,10 @@ class BatchExecutor:
             PhraseQuery,
         )
 
-        if not self.fused:
-            return self._search_batch_segment(queries, k)
         n_orig = len(queries)
         results: list = [None] * n_orig
+        _dtr = debug_time("batch.route")
+        _dtr.__enter__()
         queries = list(queries)
 
         # expansions: sub-queries appended to the batch. Exact for
@@ -2461,6 +2529,7 @@ class BatchExecutor:
             elif (self._phrase_device_eligible(q)
                   or self._prefix_device_eligible(q)):
                 phrase_ids.append(i)
+        _dtr.__exit__(None, None, None)
         done = dict(zip(
             bool_ids,
             self._search_boolean_fused([queries[i] for i in bool_ids], k),
@@ -2476,15 +2545,17 @@ class BatchExecutor:
             if isinstance(queries[i], (PhraseQuery, PhrasePrefixQuery)):
                 with self._stats_lock:
                     self.host_routed += 1
-            return self.searcher.search(queries[i], TopDocs(k))
+            with debug_time("host.search"):
+                return self.searcher.search(queries[i], TopDocs(k))
 
-        for i in range(n_orig):
-            if i in sub_of:
-                hits = [h for j in sub_of[i] for h in answer(j)]
-                _dedup_hits(hits)
-                results[i] = hits[:k]
-            else:
-                results[i] = answer(i)
+        with debug_time("batch.hits"):
+            for i in range(n_orig):
+                if i in sub_of:
+                    hits = [h for j in sub_of[i] for h in answer(j)]
+                    _dedup_hits(hits)
+                    results[i] = hits[:k]
+                else:
+                    results[i] = answer(i)
         return results
 
     def _search_batch_segment(self, queries: list, k: int):
@@ -2503,18 +2574,19 @@ class BatchExecutor:
         from ..query import PhrasePrefixQuery, PhraseQuery, TermQuery
 
         bool_ids, phrase_ids = [], []
-        for i, q in enumerate(queries):
-            if (self._bool_device_eligible(q)
-                    and len(self._clause_fields(q)) == 1):
-                if self.mode == "packed":
-                    raise dense_only("a boolean(term) query")
-                bool_ids.append(i)
-            elif self._phrase_device_eligible(q):
-                if self.mode == "packed":
-                    raise dense_only("a slop-0 phrase query")
-                phrase_ids.append(i)
-        term_ids = [i for i, q in enumerate(queries)
-                    if isinstance(q, TermQuery)]
+        with debug_time("batch.route"):
+            for i, q in enumerate(queries):
+                if (self._bool_device_eligible(q)
+                        and len(self._clause_fields(q)) == 1):
+                    if self.mode == "packed":
+                        raise dense_only("a boolean(term) query")
+                    bool_ids.append(i)
+                elif self._phrase_device_eligible(q):
+                    if self.mode == "packed":
+                        raise dense_only("a slop-0 phrase query")
+                    phrase_ids.append(i)
+            term_ids = [i for i, q in enumerate(queries)
+                        if isinstance(q, TermQuery)]
         results: list = [None] * len(queries)
 
         def put(ids, answers):
@@ -2530,12 +2602,14 @@ class BatchExecutor:
         if phrase_ids:
             put(phrase_ids, self.search_phrase_batch(
                 [queries[i] for i in phrase_ids], k))
-        for i, q in enumerate(queries):
-            if results[i] is None:
-                if isinstance(q, (PhraseQuery, PhrasePrefixQuery)):
-                    with self._stats_lock:
-                        self.host_routed += 1
-                results[i] = self.searcher.search(q, TopDocs(k))
+        with debug_time("batch.hits"):
+            for i, q in enumerate(queries):
+                if results[i] is None:
+                    if isinstance(q, (PhraseQuery, PhrasePrefixQuery)):
+                        with self._stats_lock:
+                            self.host_routed += 1
+                    with debug_time("host.search"):
+                        results[i] = self.searcher.search(q, TopDocs(k))
         return results
 
     def _worker_streams(self, n: int) -> list:
