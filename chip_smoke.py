@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught and then passed):
 1. environment: CUDA must be available; prints torch/CUDA versions and the
    card's name and power limit;
-2. build: compiles the eight kernels, group-probe, phrase-probe,
+2. build: compiles the nine kernels, group-probe, phrase-probe,
    windowed-probe, packed flat-scorer, deep-probe, per-segment phrase,
-   dense flat-scorer and merge-tail, from `tantivy_tpu_torch/csrc` with
+   dense flat-scorer, merge-tail and the planner's UB sweep, from
+   `tantivy_tpu_torch/csrc` with
    nvcc into `build/kernels/`, all at once, and prints what ptxas reports
    for each (registers, shared memory, spills) and each kernel's threads,
    shared memory per CTA and CTAs resident per SM
@@ -30,7 +31,12 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    kernel rounds recorded (under "tail") times its kernels a call
    (`merge_tail.KERNELS_PER_CALL`, one cooperative launch; the records'
    tail inputs move to the host after each batch, so that the log does
-   not add to the peak device memory);
+   not add to the peak device memory); every fused boolean round bounds
+   its blocks on the card: each UB sweep (`ub_sweep.clause_details`) of
+   the timed batches is recorded, one with block rows must launch the UB
+   sweep kernel once and one without none, a suite's UB sweep launches
+   must equal its sweeps with rows, and the AND, OR and 3-4 clause suites
+   must sweep in every timed batch;
 4b. segment route: `search_batch` of a second executor on the same index,
    `BatchExecutor(searcher, device="cuda", fused=False)` (the reference's
    XLA-mode routing: term queries on the flat scorer, K7; one-field
@@ -151,6 +157,17 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
    the probe path through K4 and its twin and every K6 chunk of one timed
    batch of each per-segment phrase suite through K6 and its twin,
    bitwise, each with the largest chunk's kernel and twin ms and bound;
+7b. UB sweep vs numpy: every UB sweep the main path's timed batches made
+   (phase 4), and then all of them as one sweep (thousands of calls, a grid
+   of several waves), through the kernel (`ub_sweep.clause_details`) and
+   its twin, the numpy `batched_clause_details`: ids, UB and term bits and
+   the window columns jlo, i0, i1 and widths must be equal, with the same
+   MUST drops; prints per sweep the calls, block rows and pair rows, and
+   for each suite's first sweep and the combined one the kernel's device
+   ms (torch.profiler), the whole card path's ms (packing, upload, launch,
+   copy back, cutting the dicts; host clock), numpy's ms and the bound
+   (the outputs written, the packed tables and each block's first and
+   last doc and `bfac` read once);
 8. per batch: the real chunks one timed batch of each suite of both paths
    launched, replayed through their kernel; prints per kernel and suite
    the launches per timed batch, the kernel's device ms over the chunks
@@ -465,6 +482,7 @@ def launch_counts() -> dict:
         packed_flat,
         phrase_probe,
         phrase_scorer,
+        ub_sweep,
     )
 
     return {"group_probe": group_probe.launches,
@@ -474,7 +492,43 @@ def launch_counts() -> dict:
             "deep_probe": deep_probe.launches,
             "seg_phrase": phrase_scorer.launches,
             "dense_flat": dense_flat.launches,
-            "merge_tail": merge_tail.launches}
+            "merge_tail": merge_tail.launches,
+            "ub_sweep": ub_sweep.launches}
+
+
+class sweep_capture:
+    """Within the block, every UB sweep of the fused boolean planner
+    (`ub_sweep.clause_details`) is recorded in `sweeps` as (store, calls);
+    a sweep with block rows on a CUDA store must launch the kernel once,
+    any other none."""
+
+    def __init__(self):
+        self.sweeps = []
+
+    def __enter__(self):
+        from tantivy_tpu_torch.ops import ub_sweep
+
+        self.inner = inner = ub_sweep.clause_details
+
+        def capture(store, calls):
+            n0 = ub_sweep.launches
+            out = inner(store, calls)
+            want = int(store.device.type == "cuda"
+                       and any(c[1] for c in calls))
+            if ub_sweep.launches - n0 != want:
+                raise AssertionError(f"a UB sweep of {len(calls)} calls "
+                                     f"launched {ub_sweep.launches - n0} "
+                                     f"kernels, not {want}")
+            self.sweeps.append((store, calls))
+            return out
+
+        ub_sweep.clause_details = capture
+        return self
+
+    def __exit__(self, *exc):
+        from tantivy_tpu_torch.ops import ub_sweep
+
+        ub_sweep.clause_details = self.inner
 
 
 def build_kernel(name: str, src_dir: str, tag: str):
@@ -666,9 +720,18 @@ def run_main_path(executor, logs, long_batch, n_seg: int):
         before = dict(executor.fallbacks)
         counts0 = launch_counts()
         n0 = len(executor.launch_log)
-        qps, p50_ms, pairs, batch_log = timed_batches(
-            executor.search_batch, qlog, executor.launch_log
-        )
+        with sweep_capture() as cap:
+            qps, p50_ms, pairs, batch_log = timed_batches(
+                executor.search_batch, qlog, executor.launch_log
+            )
+        launched = launch_counts()["ub_sweep"] - counts0["ub_sweep"]
+        swept = [calls for _, calls in cap.sweeps if any(c[1] for c in calls)]
+        if launched != len(swept):
+            raise AssertionError(f"{suite}: {launched} UB sweep launches for "
+                                 f"{len(swept)} sweeps with block rows")
+        if suite in PROBE_SUITES[1:] and len(swept) < TIMED_BATCHES:
+            raise AssertionError(f"{suite}: {len(swept)} UB sweeps in "
+                                 f"{TIMED_BATCHES} timed batches")
         by_reason = {
             why: n - before.get(why, 0)
             for why, n in executor.fallbacks.items()
@@ -683,6 +746,7 @@ def run_main_path(executor, logs, long_batch, n_seg: int):
             "launches_per_batch": per_batch_launches(counts0),
             "batch_log": batch_log,
             "tails": tail_records(executor.launch_log[n0:]),
+            "sweeps": cap.sweeps,
         }
         answered[suite] = pairs
     answered["phrase34"] = list(
@@ -2554,6 +2618,113 @@ def bool_probe_vs_twin(log, baselines: dict) -> dict:
             "baseline_synthetic_ms": times[0][3]}
 
 
+def same_details(name: str, got: list, want: list) -> None:
+    """Two lists of per-call UB detail dicts (`batched_clause_details`'s)
+    are equal: ids, the window columns, UB and term bits."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} calls, not {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = (np.array_equal(g["ids"], w["ids"])
+                and np.array_equal(g["ub"].view(np.int32),
+                                   w["ub"].view(np.int32))
+                and all(np.array_equal(g[key], w[key])
+                        for key in ("widths", "jlo", "i0", "i1"))
+                and list(g["terms"]) == list(w["terms"])
+                and all(np.array_equal(g["terms"][p].view(np.int32),
+                                       w["terms"][p].view(np.int32))
+                        for p in w["terms"]))
+        if not same:
+            raise AssertionError(f"{name}: call {i} differs from numpy")
+
+
+def ub_sweep_bytes(store, pk, flat) -> int:
+    """The least bytes a UB sweep moves: its outputs written (`flat`, the
+    kernel's int32 outputs on the host), the packed tables read, and for
+    each block the sweep touches its first and last doc (a block row's
+    own) and `bfac` (a row's own, or in a range max's [i0, i1)) read
+    once."""
+    n_blk = len(store.bfac)
+    P = pk.n_pairs
+    own = _covered(n_blk, pk.starts, pk.starts + pk.ns)
+    scanned = own | _covered(n_blk, flat[P:2 * P], flat[2 * P:3 * P])
+    return (4 * flat.size + 4 * pk.tables.size + 8 * int(own.sum())
+            + 4 * int(scanned.sum()))
+
+
+def ub_sweep_vs_numpy(timing: dict) -> dict:
+    """Every UB sweep of the main path's timed batches (recorded by
+    `sweep_capture`), then all of them as one sweep, through the kernel and
+    numpy's `batched_clause_details`, bitwise. For each suite's first sweep
+    and the combined one, the kernel's device ms (`_single_ms`), the whole
+    card path's and numpy's ms (host clock) and the bound. Returns the
+    record of the largest sweep timed, with the combined one's inside."""
+    import torch
+
+    from tantivy_tpu_torch.ops import ub_sweep as us
+    from tantivy_tpu_torch.parallel.wand import batched_clause_details
+
+    def host_ms(fn, reps):
+        spans = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            spans.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(spans))
+
+    def one(name, store, calls, timed: bool):
+        got, n_pairs = us.clause_details(store, calls)
+        want = batched_clause_details(store, calls)
+        same_details(f"ub_sweep {name}", got, want)
+        pk = us.Packed(calls)
+        tables = torch.from_numpy(pk.tables).to(store.device)
+        base, last, bfac = store.ub_tables()
+
+        def kern():
+            return us.sweep(base, last, bfac, tables, pk.n_calls, pk.n_rows,
+                            pk.n_pairs)
+
+        flat = kern().cpu().numpy()
+        dropped = sum(c[1] - len(d["ids"]) for c, d in zip(calls, got))
+        rec = {"calls": pk.n_calls, "rows": pk.n_rows, "pairs": n_pairs,
+               "dropped": dropped,
+               "bound_ms": bound_ms(ub_sweep_bytes(store, pk, flat))}
+        times = ""
+        if timed:
+            rec.update(
+                ms=_single_ms([kern], 5),
+                sweep_ms=host_ms(lambda: us.clause_details(store, calls), 5),
+                plain_ms=host_ms(
+                    lambda: batched_clause_details(store, calls), 1))
+            times = (f"kernel {_reading_text(rec['ms'])}, whole card path "
+                     f"{rec['sweep_ms']:.2f} ms, numpy {rec['plain_ms']:.1f} "
+                     f"ms (host clock), ")
+        print(f"kernel==numpy ub_sweep {name}: {pk.n_calls} calls, "
+              f"{pk.n_rows} block rows, {n_pairs} pair rows, {dropped} rows "
+              f"dropped, bitwise equal; {times}bound {rec['bound_ms']:.4f} "
+              "ms")
+        return rec
+
+    recs, swept = [], []
+    for suite, tm in timing.items():
+        for b, (store, calls) in enumerate(tm["sweeps"]):
+            if any(c[1] for c in calls):
+                recs.append(one(f"{suite} sweep {b}", store, calls, not b))
+                swept.append((store, calls))
+    if not recs:
+        raise AssertionError("the main path made no UB sweep")
+    stores = {id(store) for store, _ in swept}
+    if len(stores) != 1:
+        raise AssertionError(f"the main path's UB sweeps read {len(stores)} "
+                             "stores")
+    combined = one(f"all {len(swept)} sweeps as one", swept[0][0],
+                   [c for _, calls in swept for c in calls], True)
+    largest = max((r for r in recs if "ms" in r), key=lambda r: r["pairs"])
+    return {"max_abs_err": 0.0, **largest, "combined": combined,
+            "sweeps_compared": len(recs)}
+
+
 def deep_probe_vs_twin(log, baselines: dict) -> dict:
     """Every deep chunk of the probe path (its warm and timed batches)
     through kernel K4 and its twin on the card, bitwise; the largest
@@ -2752,6 +2923,7 @@ def main(argv=None) -> int:
         packed_flat,
         phrase_probe,
         phrase_scorer,
+        ub_sweep,
     )
 
     def zero_counts():
@@ -2763,6 +2935,7 @@ def main(argv=None) -> int:
         phrase_scorer.launches = 0
         dense_flat.reset_counts()
         merge_tail.reset_counts()
+        ub_sweep.reset_counts()
 
     gpu = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2816,7 +2989,8 @@ def main(argv=None) -> int:
     )
     launches = {"group_probe": group_probe.launches,
                 "phrase_probe": phrase_probe.launches,
-                "merge_tail": merge_tail.launches}
+                "merge_tail": merge_tail.launches,
+                "ub_sweep": ub_sweep.launches}
     main_tail_kernels = dict(merge_tail.launches_by_kernel)
     executor.launch_log, log = [], executor.launch_log
     main_tails = check_tail_launches("the main path", merge_tail.launches,
@@ -2831,8 +3005,14 @@ def main(argv=None) -> int:
               f" per {BATCH}-query batch, k={K} ({gpu}); "
               f"{tm['host_plans']} of {tm['plans']} (query, segment) plans "
               f"ran on the host engine {tm['host_by_reason']}")
+    n_swept = {suite: sum(any(c[1] for c in calls)
+                          for _, calls in tm["sweeps"])
+               for suite, tm in timing.items()}
     print(f"launches on the main path: {launches} (merge_tail: "
-          f"{main_tails} merge tails of the launch log, all of them K8); "
+          f"{main_tails} merge tails of the launch log, all of them K8; "
+          f"ub_sweep: one a UB sweep with block rows, timed sweeps by suite "
+          f"{n_swept}, plan_stats ub_sweep_card_rows "
+          f"{executor.plan_stats.get('ub_sweep_card_rows', 0)}); "
           f"host_routed={executor.host_routed} "
           f"fallbacks={executor.fallbacks}")
     for name, n in launches.items():
@@ -3000,7 +3180,8 @@ def main(argv=None) -> int:
                            **probe_answered, **seg_answered}, args.seed)
     by_path.update({"main": {"group_probe": launches["group_probe"],
                              "phrase_probe": launches["phrase_probe"],
-                             "merge_tail": launches["merge_tail"]},
+                             "merge_tail": launches["merge_tail"],
+                             "ub_sweep": launches["ub_sweep"]},
                     "probe": {"bool_probe": launches["bool_probe"],
                               "deep_probe": launches["deep_probe"],
                               "merge_tail": probe_tail_launches},
@@ -3167,6 +3348,7 @@ def main(argv=None) -> int:
                                 baselines, "largest chunk",
                                 term_batch["big_rows_call"])}}
     hard_cases_vs_twin()
+    stats["ub_sweep"] = ub_sweep_vs_numpy(timing)
     per_batch = batch_kernel_times({
         **timing,
         **{f"probe_{suite}": tm for suite, tm in probe_timing.items()},
@@ -3203,7 +3385,10 @@ def main(argv=None) -> int:
                 "dense_flat": "tantivy_tpu/ops/term_scorer.py:25 + "
                               "tantivy_tpu/ops/flat_scorer.py:43",
                 "merge_tail": "tantivy_tpu/ops/probe_scorer.py:120 + "
-                              "tantivy_tpu/ops/probe_scorer.py:178"}
+                              "tantivy_tpu/ops/probe_scorer.py:178",
+                "ub_sweep": "no kernel: the host's numpy "
+                            "batched_clause_details, "
+                            "tantivy_tpu/parallel/wand.py:168"}
     print(f"gpu: {gpu}")
     print(json.dumps({"kernels": [{
         "name": name,

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 
 #: the kernel sources, `csrc/<name>.cu`, one library each
 KERNELS = ("group_probe", "phrase_probe", "bool_probe", "packed_flat",
-           "deep_probe", "seg_phrase", "dense_flat", "merge_tail")
+           "deep_probe", "seg_phrase", "dense_flat", "merge_tail",
+           "ub_sweep")
 
 _lock = threading.Lock()
 #: one lock per kernel, so that different kernels build concurrently

@@ -14,11 +14,13 @@ global block id indexes both the device stores and the host tables:
 
 `cstore` and the phrase position store `postore` are int32 tensors on the
 store's device, and the per-block last docs and position offsets get one
-device copy each, for the deep probe and the per-segment phrase probe. int32 is lossless for `cstore` because every word is < 2^31
-(TERMINATED = 2^31 - 1, and cachev bits are those of a non-negative f32 or
-NaN); `postore` keeps the reference's u32 words, whose 0xFFFFFFFF padding
-reads as -1. The port's merge tail has one form for every segment and doc
-count, so the store sets no `pack_addr_ok`.
+device copy each, for the deep probe and the per-segment phrase probe; the
+per-block first docs and `bfac` get one too, for the planner's UB sweep on
+the card (`ub_tables`). int32 is lossless for `cstore` because every word
+is < 2^31 (TERMINATED = 2^31 - 1, and cachev bits are those of a
+non-negative f32 or NaN); `postore` keeps the reference's u32 words, whose
+0xFFFFFFFF padding reads as -1. The port's merge tail has one form for
+every segment and doc count, so the store sets no `pack_addr_ok`.
 
 Several batches may use one store at once (`BatchExecutor.search_batches`,
 each batch on its own CUDA stream). Registering a slab, rebuilding the
@@ -26,8 +28,8 @@ store and building the position store hold `lock`, and a new device tensor
 is uploaded and its stream synchronised before it is published, so every
 stream reads it whole. Slabs keep their rows when the store grows (new
 slabs are appended), so a plan made against one build stays valid against
-the next. A replaced `cstore`, `postore`, block-last or block-position
-tensor is marked as used by every stream that has read the store
+the next. A replaced `cstore`, `postore`, block-last, block-position or
+UB-sweep tensor is marked as used by every stream that has read the store
 (`Tensor.record_stream`), so the caching allocator hands its memory out
 again only after the kernels those streams had queued have passed.
 """
@@ -97,6 +99,7 @@ class FusedStore:
         self._rmax = None
         self._rkeys = None
         self._blk_last_t = None
+        self._ub_t = None           # (blk_base, bfac) on `device`
         # phrase extension, built on demand
         self.postore = None         # [NPr, 256] int32: positions | owners
         self.blk_pos = None         # host [NB + 1] i64 position offset
@@ -209,6 +212,8 @@ class FusedStore:
         )
         self._retire(self.cstore)
         self._retire(self._blk_last_t)
+        for old in self._ub_t or ():
+            self._retire(old)
         # published in one step: a reader without the lock sees the old
         # tables or the new ones, whose rows extend the old ones'
         self.__dict__.update(
@@ -223,6 +228,7 @@ class FusedStore:
             _rmax=RangeMax(bfac),
             _rkeys=None,
             _blk_last_t=None,
+            _ub_t=None,
         )
         self._dirty = False
 
@@ -330,6 +336,22 @@ class FusedStore:
             if self._blk_last_t is None:
                 self._blk_last_t = self._upload(self.blk_last_doc)
             return self._blk_last_t
+
+    def ub_tables(self) -> tuple:
+        """(blk_base, blk_last_doc, bfac) on the store's device, the first
+        two int32 holding u32 docs, `bfac` f32: the tables the planner's UB
+        sweep reads (`ops/ub_sweep.py`). `blk_last_doc` is the deep probe's
+        copy; the other two are copied once per store build."""
+        with self.lock:
+            self._fresh()
+            if self._ub_t is None:
+                self._ub_t = (
+                    self._upload(self.blk_base),
+                    self._upload(self.bfac.view(np.uint32)).view(
+                        torch.float32),
+                )
+            base, bfac = self._ub_t
+            return base, self.blk_last_device(), bfac
 
     # -- phrase position store ---------------------------------------------
 

@@ -83,7 +83,7 @@ _TRACED_PLAN = ("ub_blocks", "wand_p1", "wand_p2")
 #: fused route, the per-segment paths' too
 _ROUTE_KERNELS = {
     ("dense", True): ("group_probe", "phrase_probe", "bool_probe",
-                      "deep_probe", "seg_phrase", "dense_flat"),
+                      "deep_probe", "seg_phrase", "dense_flat", "ub_sweep"),
     ("dense", False): ("bool_probe", "deep_probe", "seg_phrase",
                        "dense_flat"),
     ("packed", False): ("packed_flat",),
@@ -618,10 +618,13 @@ class BatchExecutor:
         return self._fused_store
 
     def _warm_store(self, positions: bool) -> None:
-        """Upload the fused store and, with `positions`, build the position
-        store that the route's phrase path reads (the per-segment one also
-        reads each row's position offsets)."""
+        """Upload the fused store and, on CUDA, the UB sweep's tables
+        the fused boolean planner reads; with `positions`, build the
+        position store that the route's phrase path reads (the per-segment
+        one also reads each row's position offsets)."""
         fused = self._fused().ready()
+        if self.fused and fused.device.type == "cuda" and fused.slabs:
+            fused.ub_tables()
         if positions and fused.slabs:
             if self.fused:
                 fused.ensure_positions()
@@ -714,6 +717,7 @@ class BatchExecutor:
 
         from ..ops import fused_bool as fb
         from ..ops import probe_scorer as ps
+        from ..ops import ub_sweep
         from ..ops.probe_scorer import t_bucket
 
         Q = len(queries)
@@ -791,8 +795,6 @@ class BatchExecutor:
         _dtp1.__enter__()
         # pass 1: resolve term regions per (segment, query) and batch-plan
         # EVERY positive clause's UB detail in one vectorized sweep
-        from .wand import batched_clause_details
-
         plans = []
         ub_calls = []
         det_of: dict[tuple[int, int, int], int] = {}
@@ -854,8 +856,11 @@ class BatchExecutor:
                               positive, regions, musts, nblk, shipped,
                               others))
         _dtp1.__exit__(None, None, None)
+        # the UB sweep: on a CUDA store one kernel (`ops/ub_sweep.py`), else
+        # numpy; both give the same dicts, bit for bit
         with debug_time("bool.plan_details", n=len(ub_calls)):
-            dets = batched_clause_details(fused, ub_calls)
+            dets, n_card = ub_sweep.clause_details(fused, ub_calls)
+        self._count_plan("ub_sweep_card_rows", n_card)
         # counted once a batch (`plan_stats`): blocks bounded, candidates,
         # phase-1 blocks
         n_ub = sum(c[1] for c in ub_calls)
