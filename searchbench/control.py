@@ -21,7 +21,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from searchbench.corpus import make_corpus  # noqa: E402
+from searchbench.corpus import make_corpus, text_fields  # noqa: E402
 from searchbench.harness import Run  # noqa: E402
 from searchbench.reference import Arith, Reference  # noqa: E402
 from searchbench.traffic import Traffic  # noqa: E402
@@ -35,7 +35,8 @@ def control_run(workload: str, seed: int, batches: int, precision: str,
     """The check of a run whose answers are the reference's in
     `precision`, with `batches` batches answered."""
     run = Run(workload, seed, 0.0, False, device="cpu", **where)
-    run.corpus = make_corpus(run.cell.config["corpus"], seed)
+    cfg = run.cell.config
+    run.corpus = make_corpus(cfg["corpus"], seed, text_fields(cfg))
     run.traffic = Traffic(run.cell.mix, run.corpus, seed)
     strings = [s for i in range(batches) for s in run.traffic.batch_at(i)]
     run.answers = [(s, []) for s in strings]

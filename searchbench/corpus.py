@@ -8,6 +8,17 @@ fixed word counts and fixed document lengths rather than drawing them
 that every seed indexes as much text of the same shape. Both sides of the benchmark read it:
 the program indexes each document's text, and the reference reads the
 same windows as (start, end) offsets into the stream.
+
+A configuration names its text fields with `field` (one name) or
+`fields` (several, in the query parser's default-field order; see
+`spec.py`). The field without a `doc_len` of its own, the main field,
+takes the corpus's `doc_len` and the windows above. Each other field's
+window has a length drawn from its own `doc_len` and starts at a seeded
+offset into the main field's window, so that it lies inside that window
+where it fits (a title's words occur in its body), cut at the stream's
+end. Those draws use purposes of `rng_for` that no other draw uses, so the
+main field's stream, lengths and starts are those of a one-field
+configuration, bit for bit.
 """
 
 from __future__ import annotations
@@ -23,28 +34,40 @@ PASS_SHIFT = 131
 TAIL_GAP = 10
 #: a pass starts no later than this many tokens before the stream's end
 PASS_ROOM = 200
+#: `rng_for` purposes of a further field's lengths and of its offsets into
+#: the main field's windows (the field's place in `fields` is the index)
+FIELD_LENGTHS = 20
+FIELD_OFFSETS = 21
 
 
 @dataclass
 class Corpus:
-    """`words[stream[starts[d]:ends[d]]]`, joined by spaces, is document
-    d's text; documents are committed in order, `per_segment` a commit."""
+    """`fields` gives every text field's name and (starts, ends), in the
+    parser's default-field order: `words[stream[starts[d]:ends[d]]]`,
+    joined by spaces, is document d's text in that field. Documents are
+    committed in order, `per_segment` a commit."""
 
     words: np.ndarray
     stream: np.ndarray
-    starts: np.ndarray
-    ends: np.ndarray
     per_segment: int
+    fields: dict[str, tuple[np.ndarray, np.ndarray]]
 
     @property
     def n_docs(self) -> int:
-        return len(self.starts)
+        return len(next(iter(self.fields.values()))[0])
 
-    def texts(self):
-        """Each document's text, in commit order."""
+    def texts(self, field: str):
+        """Each document's text in `field`, in commit order."""
+        starts, ends = self.fields[field]
         toks = self.words[self.stream].tolist()
-        for s, e in zip(self.starts.tolist(), self.ends.tolist()):
+        for s, e in zip(starts.tolist(), ends.tolist()):
             yield " ".join(toks[s:e])
+
+    def documents(self):
+        """Each document as {field: text}, in commit order."""
+        names = list(self.fields)
+        for texts in zip(*(self.texts(f) for f in names)):
+            yield dict(zip(names, texts))
 
     def address(self, doc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """(segment, doc id) of global document numbers under the commit
@@ -112,14 +135,41 @@ def windows(n_tokens: int, lens: np.ndarray):
     return starts, np.minimum(starts + lens, n_tokens)
 
 
-def make_corpus(spec: dict, seed: int) -> Corpus:
-    """The corpus a configuration's `corpus` parameters give for `seed`."""
+def text_fields(cfg: dict) -> list[dict]:
+    """A configuration's text fields, each {"name"[, "doc_len"]}, in the
+    parser's default-field order: `fields`, or the one `field`. Exactly one
+    of them has no `doc_len`."""
+    fields = cfg.get("fields") or [{"name": cfg["field"]}]
+    if sum("doc_len" not in f for f in fields) != 1:
+        raise ValueError("exactly one field takes the corpus's doc_len")
+    return fields
+
+
+def _sized(spec: dict, seed: int, purpose: int, index: int, n_docs: int):
+    """Lengths by `spec` (see `doc_lengths`), in the seed's order or, with
+    `"order": "fixed"`, in seed 0's for every seed, so that each block of
+    documents holds as many tokens in every run."""
+    fixed = spec.get("order", "seed") == "fixed"
+    return doc_lengths(rng_for(0 if fixed else seed, purpose, index),
+                       n_docs, spec)
+
+
+def make_corpus(spec: dict, seed: int, fields: list[dict]) -> Corpus:
+    """The corpus a configuration's `corpus` parameters and text fields
+    (`text_fields`) give for `seed`."""
     words, stream = token_stream(seed, spec["vocab"], spec["stream_tokens"])
-    # `"order": "fixed"` puts the lengths in seed 0's order for every seed,
-    # so that each block of documents holds as many tokens in every run
-    fixed = spec["doc_len"].get("order", "seed") == "fixed"
-    rng = rng_for(0 if fixed else seed, 1)
-    lens = doc_lengths(rng, spec["docs"], spec["doc_len"])
-    starts, ends = windows(len(stream), lens)
-    per = -(-spec["docs"] // spec["segments"])
-    return Corpus(words, stream, starts, ends, per)
+    n_docs, n_tokens = spec["docs"], len(stream)
+    lens = _sized(spec["doc_len"], seed, 1, 0, n_docs)
+    starts, ends = windows(n_tokens, lens)
+    spans = {}
+    for j, f in enumerate(fields):
+        if "doc_len" not in f:
+            spans[f["name"]] = (starts, ends)
+            continue
+        n = _sized(f["doc_len"], seed, FIELD_LENGTHS, j, n_docs)
+        room = np.maximum(ends - starts - n, 0)
+        u = rng_for(seed, FIELD_OFFSETS, j).random(n_docs)
+        s = starts + np.floor(u * (room + 1)).astype(np.int64)
+        spans[f["name"]] = (s, np.minimum(s + n, n_tokens))
+    per = -(-n_docs // spec["segments"])
+    return Corpus(words, stream, per, spans)

@@ -27,7 +27,7 @@ import numpy as np
 
 from . import spec as specs
 from . import tracebook
-from .corpus import make_corpus, rng_for
+from .corpus import make_corpus, rng_for, text_fields
 from .reference import Arith, Reference
 from .roofline import launch_bytes
 from .traffic import Traffic
@@ -84,19 +84,21 @@ def zstd_codec() -> None:
     sys.modules["zstandard"] = mod
 
 
-def build_index(corpus, field: str):
-    """The corpus indexed by the program, one commit a segment, one
-    indexing thread, nothing merged; the index lives in memory."""
+def build_index(corpus):
+    """The corpus indexed by the program, one TEXT field a text field of
+    the corpus, in order; one commit a segment, one indexing thread,
+    nothing merged; the index lives in memory."""
     import tantivy_tpu_torch as tt
 
     b = tt.Schema.builder()
-    b.add_text_field(field, tt.TEXT)
+    for field in corpus.fields:
+        b.add_text_field(field, tt.TEXT)
     index = tt.Index.create_in_ram(b.build())
     w = index.writer(memory_budget=2_000_000_000, num_threads=1,
                      merge_policy=tt.NoMergePolicy())
     n, per = corpus.n_docs, corpus.per_segment
-    for i, text in enumerate(corpus.texts()):
-        w.add_document(tt.Document(**{field: text}))
+    for i, doc in enumerate(corpus.documents()):
+        w.add_document(tt.Document(**doc))
         if (i + 1) % per == 0 and i + 1 < n:
             w.commit()
     w.commit()
@@ -145,15 +147,16 @@ class Run:
         from tantivy_tpu_torch.query.parser import QueryParser
 
         cfg, mix = self.cell.config, self.cell.mix
-        self.corpus = make_corpus(cfg["corpus"], self.seed)
+        self.corpus = make_corpus(cfg["corpus"], self.seed, text_fields(cfg))
         t = time.perf_counter()
-        self.index = build_index(self.corpus, cfg["field"])
+        self.index = build_index(self.corpus)
         self.say(f"index: {self.corpus.n_docs} docs in "
                  f"{time.perf_counter() - t:.1f} s")
         self.searcher = self.index.reader().searcher()
         sizes = [r.max_doc for r in self.searcher.segment_readers()]
         self.n_segments = len(sizes)
-        self.parser = QueryParser.for_index(self.index, [cfg["field"]])
+        self.parser = QueryParser.for_index(self.index,
+                                            list(self.corpus.fields))
         self.executor = BatchExecutor(self.searcher, device=self.device)
         self.traffic = Traffic(mix, self.corpus, self.seed)
         self.counters = Counters(self.kernels)

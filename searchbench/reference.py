@@ -24,6 +24,19 @@ tantivy's semantics for the query strings the traffic generator writes:
 * hits ordered by score descending, then by address (segment, doc id)
   ascending, cut at k; the address comes from the commit schedule.
 
+Over several text fields (the parser's default fields, in order) a bare
+term or a quoted phrase is what tantivy's parser makes of it: a boolean of
+SHOULD clauses, one a field, whose score is the sum of the matching
+fields' scores in field order, from 0.0; `+x` and `-x` are MUST and
+MUST_NOT over that nested boolean, which matches where any field matches,
+and the outer sum goes in clause order as above. Each field has its own
+document frequencies (idf over all documents), its own average fieldnorm
+(the field's total tokens over all documents, a float32 division) and its
+own fieldnorm id a document; a phrase's positions never cross a field's
+window. This is the order in which the port's host engine sums
+(`BooleanWeight.execute`). One field is the case of one summand: 0.0 + s
+is s, so its scores are those of the one-field arithmetic above.
+
 Every float32 operation goes through `Arith`, so that the same code, with
 `Arith("bfloat16")`, is the control: the reference in the precision below
 the configuration's float32.
@@ -137,6 +150,21 @@ def parse(query: str) -> tuple:
     return ("bool", [(occ or "should", sub) for occ, sub in clauses])
 
 
+class Field:
+    """One text field's windows and each document's BM25 length factor,
+    K1 * (1 - B + B * dl / avgdl), by its fieldnorm id."""
+
+    def __init__(self, name: str, starts, ends, a: Arith):
+        self.name, self.starts, self.ends = name, starts, ends
+        lengths = ends - starts
+        avg = a.div(np.float32(int(lengths.sum())), np.float32(len(lengths)))
+        dl = FIELDNORMS.astype(np.float32)
+        norm = a.mul(np.float32(K1), a.add(
+            a.sub(np.float32(1.0), np.float32(B)),
+            a.div(a.mul(np.float32(B), dl), avg)))
+        self.doc_norm = norm[fieldnorm_id(lengths)]
+
+
 class Reference:
     """The answers of one corpus: `topk(query, k)` gives [(score bits,
     segment, doc id)] in rank order."""
@@ -155,23 +183,15 @@ class Reference:
         word_tok = np.array([self.token_ids.setdefault(t, len(self.token_ids))
                              for t in tok_of_word], dtype=np.int32)
         self.tokens = word_tok[corpus.stream]
-        self.starts, self.ends = corpus.starts, corpus.ends
-        lengths = self.ends - self.starts
-        self.n_docs = len(lengths)
-        a = self.a
-        avg = a.div(np.float32(int(lengths.sum())), np.float32(self.n_docs))
-        # the per-fieldnorm-id length factor, K1 * (1 - B + B * dl / avgdl)
-        dl = FIELDNORMS.astype(np.float32)
-        self.norm = a.mul(np.float32(K1), a.add(
-            a.sub(np.float32(1.0), np.float32(B)),
-            a.div(a.mul(np.float32(B), dl), avg)))
-        self.doc_norm = self.norm[fieldnorm_id(lengths)]
+        self.n_docs = corpus.n_docs
+        self.fields = [Field(name, s, e, self.a)
+                       for name, (s, e) in corpus.fields.items()]
         self._tf: dict[tuple, np.ndarray] = {}
 
-    def _count(self, toks: tuple) -> np.ndarray:
-        """Each document's count of slop-0 occurrences of `toks` (its term
-        frequency for one token)."""
-        got = self._tf.get(toks)
+    def _count(self, toks: tuple, f: Field) -> np.ndarray:
+        """Each document's count of slop-0 occurrences of `toks` in field
+        `f` (its term frequency for one token)."""
+        got = self._tf.get((f.name, toks))
         if got is not None:
             return got
         n = len(toks)
@@ -184,13 +204,13 @@ class Reference:
             for j in range(1, n):
                 hit &= self.tokens[j:L - n + 1 + j] == ids[j]
             cum = np.concatenate(([0], np.cumsum(hit, dtype=np.int32)))
-            last = np.maximum(self.ends - n + 1, self.starts)
-            counts = cum[last] - cum[self.starts]
+            last = np.maximum(f.ends - n + 1, f.starts)
+            counts = cum[last] - cum[f.starts]
         if n == 1:
             # terms recur across queries; at most TF_CACHE arrays are kept
             if len(self._tf) >= TF_CACHE:
                 self._tf.clear()
-            self._tf[toks] = counts
+            self._tf[(f.name, toks)] = counts
         return counts
 
     def idf(self, doc_freq: int) -> np.float32:
@@ -200,36 +220,50 @@ class Reference:
                   a.add(np.float32(doc_freq), np.float32(0.5)))
         return a.log1p(x)
 
-    def _scored(self, sub) -> tuple[np.ndarray, np.ndarray]:
-        """(docs, scores) of a term or phrase clause, docs ascending."""
+    def _scored(self, sub, f: Field) -> tuple[np.ndarray, np.ndarray]:
+        """(docs, scores) of a term or phrase clause in field `f`, docs
+        ascending."""
         a = self.a
-        if sub[0] == "term":
-            terms = [sub[1]]
-            freq = self._count((sub[1],))
-        else:
-            terms = list(sub[1])
-            freq = self._count(tuple(terms))
+        terms = [sub[1]] if sub[0] == "term" else list(sub[1])
+        freq = self._count(tuple(terms), f)
         idf = np.float32(0.0)
         for t in terms:
-            df = int(np.count_nonzero(self._count((t,))))
+            df = int(np.count_nonzero(self._count((t,), f)))
             idf = a.add(idf, self.idf(max(df, 1)))
         weight = a.mul(idf, a.add(np.float32(1.0), np.float32(K1)))
         docs = np.flatnonzero(freq)
         tf = freq[docs].astype(np.float32)
-        tf_factor = a.div(tf, a.add(tf, self.doc_norm[docs]))
+        tf_factor = a.div(tf, a.add(tf, f.doc_norm[docs]))
         return docs, a.mul(weight, tf_factor)
+
+    def _clause(self, sub) -> tuple[np.ndarray, np.ndarray]:
+        """(docs, scores) of a term or phrase over the default fields: the
+        sum in field order of the fields that match, from 0.0 (over one
+        field, that field's own scores, as 0.0 + s == s in either
+        precision)."""
+        a = self.a
+        hit = np.zeros(self.n_docs, dtype=bool)
+        total = np.zeros(self.n_docs, dtype=np.float32)
+        for f in self.fields:
+            docs, s = self._scored(sub, f)
+            hit[docs] = True
+            dense = np.zeros(self.n_docs, dtype=np.float32)
+            dense[docs] = s
+            total = a.add(total, dense)
+        docs = np.flatnonzero(hit)
+        return docs, total[docs]
 
     def scores(self, query: str) -> tuple[np.ndarray, np.ndarray]:
         """(docs, scores) of every matching document, docs ascending."""
         q = parse(query)
         if q[0] != "bool":
-            return self._scored(q)
+            return self._clause(q)
         a = self.a
         must = should = None
         excluded = np.zeros(self.n_docs, dtype=bool)
         total = np.zeros(self.n_docs, dtype=np.float32)
         for occ, sub in q[1]:
-            docs, s = self._scored(sub)
+            docs, s = self._clause(sub)
             hit = np.zeros(self.n_docs, dtype=bool)
             hit[docs] = True
             if occ == "must_not":

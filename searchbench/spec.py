@@ -2,7 +2,24 @@
 (`configs/<name>.json`), its traffic mix (`traffic/<name>.json`) and the
 reader of each per-layer metric (`metrics/<name>.py`). A new
 configuration, mix or metric is a new file and an entry, and needs no
-edit here."""
+edit here.
+
+A configuration file holds `corpus` (`vocab`, `stream_tokens`, `docs`,
+`segments`, `doc_len`: see `corpus.py`) and its text fields, in one of two
+forms:
+
+* `"field": "body"`: one TEXT field;
+* `"fields": [{"name": "title", "doc_len": {...}}, {"name": "body"}]`:
+  several TEXT fields, in the query parser's default-field order. Exactly
+  one leaves out `doc_len` and takes the corpus's lengths and windows; each
+  other field draws its lengths from its own `doc_len` and its window from
+  inside that field's window (`corpus.make_corpus`).
+
+The index holds one TEXT field an entry, in order, and the parser searches
+them all, as tantivy's `QueryParser::for_index(&index, vec![title, body])`
+does; `reference.py` scores what that parser builds. The rest of the file
+(`source`, `published`, `reduced`, `assumed`, `guarantees`, `similarity`)
+states the deployment for its readers."""
 
 from __future__ import annotations
 

@@ -24,16 +24,25 @@ def pytest_configure(config):
 TINY_CORPUS = {"vocab": 400, "stream_tokens": 20000, "docs": 1200,
                "segments": 4,
                "doc_len": {"dist": "loguniform", "lo": 5, "hi": 400}}
+#: a one-field configuration's `fields`
+BODY = [{"name": "body"}]
+#: a title + body configuration's `fields`: titles of 3-15 tokens, the
+#: body as TINY_CORPUS gives it
+TITLE_BODY = [{"name": "title",
+               "doc_len": {"dist": "uniform", "lo": 3, "hi": 16}},
+              {"name": "body"}]
 
 
-def write_tiny_bench(path, mixes: dict) -> dict:
+def write_tiny_bench(path, mixes: dict, fields: list | None = None) -> dict:
     """A BENCHMARK.json under `path` with the real metrics and one tiny
-    cell a mix of `mixes` ({name: mix}), over a tiny corpus."""
+    cell a mix of `mixes` ({name: mix}), over a tiny corpus of one `body`
+    field, or of the text `fields` given."""
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         real = json.load(f)
     os.makedirs(os.path.join(path, "configs"), exist_ok=True)
     os.makedirs(os.path.join(path, "traffic"), exist_ok=True)
-    cfg = {"name": "tiny", "field": "body", "corpus": TINY_CORPUS}
+    cfg = {"name": "tiny", "corpus": TINY_CORPUS}
+    cfg.update({"fields": fields} if fields else {"field": "body"})
     with open(os.path.join(path, "configs", "tiny.json"), "w") as f:
         json.dump(cfg, f)
     cells = []
@@ -66,5 +75,15 @@ def tiny_bench(tmp_path):
     write_tiny_bench(tmp_path, {
         "questions": small_mix("questions", 24),
         "phrase": small_mix("phrase", 24),
+        "union": small_mix("union", 24),
     })
+    return str(tmp_path)
+
+
+@pytest.fixture
+def title_body_bench(tmp_path):
+    write_tiny_bench(tmp_path, {
+        "questions": small_mix("questions", 24),
+        "phrase": small_mix("phrase", 24),
+    }, fields=TITLE_BODY)
     return str(tmp_path)

@@ -1,10 +1,11 @@
 """The reference against the port's plain versions at a tiny size, for
-every query form of the benchmark's mixes, and the reference's own parts
-against tantivy's definitions."""
+every query form of the benchmark's mixes, over one `body` field and over
+a title + body index that the parser queries on both fields, and the
+reference's own parts against tantivy's definitions."""
 
 import numpy as np
 import pytest
-from conftest import TINY_CORPUS, small_mix
+from conftest import TINY_CORPUS, TITLE_BODY, small_mix
 
 from searchbench.corpus import make_corpus
 from searchbench.reference import (
@@ -17,29 +18,62 @@ from searchbench.reference import (
 )
 from searchbench.traffic import Traffic
 
+#: the text fields of each tiny index
+LAYOUTS = {"body": [{"name": "body"}], "title+body": TITLE_BODY}
 
-@pytest.fixture(scope="module")
-def tiny():
+
+@pytest.fixture(scope="module", params=sorted(LAYOUTS))
+def tiny(request):
     """A tiny corpus indexed by the port, its searcher on the CPU, and
     the reference over the same corpus."""
     from searchbench.harness import build_index, zstd_codec
 
     zstd_codec()
-    corpus = make_corpus(TINY_CORPUS, 2**31 + 7)
-    index = build_index(corpus, "body")
+    corpus = make_corpus(TINY_CORPUS, 2**31 + 7, LAYOUTS[request.param])
+    index = build_index(corpus)
     return corpus, index, Reference(corpus)
 
 
-def port_topk(index, strings, k=10):
+def bits(hits):
+    return [(int(np.float32(s).view(np.int32)), a.segment_ord, a.doc_id)
+            for s, a in hits]
+
+
+def port_topk(corpus, index, strings, k=10):
+    """The port's answers on its default route (`search_batch`), its
+    host engine's (`searcher.search`), and the executor; the parser's
+    default fields are the corpus's text fields."""
+    import tantivy_tpu_torch as tt
     from tantivy_tpu_torch.parallel import BatchExecutor
     from tantivy_tpu_torch.query.parser import QueryParser
 
     searcher = index.reader().searcher()
-    parser = QueryParser.for_index(index, ["body"])
+    parser = QueryParser.for_index(index, list(corpus.fields))
+    queries = [parser.parse_query(s) for s in strings]
     ex = BatchExecutor(searcher, device="cpu")
-    got = ex.search_batch([parser.parse_query(s) for s in strings], k)
-    return [[(int(np.float32(s).view(np.int32)), a.segment_ord, a.doc_id)
-             for s, a in hits] for hits in got], ex
+    got = [bits(h) for h in ex.search_batch(queries, k)]
+    host = [bits(searcher.search(q, tt.TopDocs(k))) for q in queries]
+    return got, host, ex
+
+
+def fused_chain_fault(corpus, query: str) -> bool:
+    """A lone term over several fields: the parser makes a boolean of term
+    clauses across fields, which the default route sends to the fused
+    chain, whose known fault scores every clause with one field's BM25
+    denominator (ROADMAP.md, the fused chain's cross-field fault); its
+    answers are the host engine's only where no document holds the term in
+    two fields."""
+    return len(corpus.fields) > 1 and parse(query)[0] == "term"
+
+
+def assert_port_equals(corpus, ref, index, strings, k=10):
+    got, host, ex = port_topk(corpus, index, strings, k)
+    want = [ref.topk(s, k) for s in strings]
+    assert host == want
+    for s, g, w in zip(strings, got, want):
+        if not fused_chain_fault(corpus, s):
+            assert g == w, s
+    return got, want, ex
 
 
 FORM_MIXES = {
@@ -56,19 +90,16 @@ def test_reference_equals_port(tiny, form):
     corpus, index, ref = tiny
     mix = {"batch": 30, "k": 10, "forms": [FORM_MIXES[form]]}
     strings = Traffic(mix, corpus, 11).batch_at(0)
-    got, ex = port_topk(index, strings)
-    want = [ref.topk(s, 10) for s in strings]
-    assert got == want
+    _, want, ex = assert_port_equals(corpus, ref, index, strings)
     assert not ex.fallbacks and ex.host_routed == 0
     assert sum(len(w) for w in want) > 0
 
 
-@pytest.mark.parametrize("mix_name", ["questions", "phrase"])
+@pytest.mark.parametrize("mix_name", ["questions", "phrase", "union"])
 def test_reference_equals_port_on_real_mixes(tiny, mix_name):
     corpus, index, ref = tiny
     strings = Traffic(small_mix(mix_name, 40), corpus, 5).batch_at(3)
-    got, _ = port_topk(index, strings, k=10)
-    assert got == [ref.topk(s, 10) for s in strings]
+    assert_port_equals(corpus, ref, index, strings)
 
 
 def test_reference_equals_port_on_repeated_terms(tiny):
@@ -77,23 +108,88 @@ def test_reference_equals_port_on_repeated_terms(tiny):
     w = corpus.words
     strings = [f"{w[0]} {w[1]} {w[0]}", f"+{w[2]} +{w[2]}",
                f'"{w[0]} {w[0]}"', f"{w[3]} -{w[0]} {w[3]}"]
-    got, _ = port_topk(index, strings)
-    assert got == [ref.topk(s, 10) for s in strings]
+    assert_port_equals(corpus, ref, index, strings)
 
 
 def test_reference_ranks_ties_by_address(tiny):
     corpus, index, ref = tiny
     # a rare word gives many equal scores among its documents
     strings = [str(corpus.words[-1]), str(corpus.words[300])]
-    got, _ = port_topk(index, strings, k=50)
-    assert got == [ref.topk(s, 50) for s in strings]
+    assert_port_equals(corpus, ref, index, strings, k=50)
 
 
-def test_control_differs_from_reference(tiny):
+@pytest.mark.parametrize("mix_name", ["questions", "union"])
+def test_control_differs_from_reference(tiny, mix_name):
     corpus, _, ref = tiny
     low = Reference(corpus, Arith("bfloat16"))
-    strings = Traffic(small_mix("questions", 20), corpus, 9).batch_at(0)
+    strings = Traffic(small_mix(mix_name, 20), corpus, 9).batch_at(0)
     assert all(low.topk(s, 10) != ref.topk(s, 10) for s in strings)
+
+
+@pytest.fixture(scope="module")
+def title_body():
+    from searchbench.harness import build_index, zstd_codec
+
+    zstd_codec()
+    corpus = make_corpus(TINY_CORPUS, 2**31 + 7, TITLE_BODY)
+    return corpus, build_index(corpus)
+
+
+def test_two_fields_index_and_parse_as_tantivy(title_body):
+    """Each field a TEXT field, in order; a bare term, a phrase and `+x`
+    parse into SHOULD clauses over both fields, as tantivy's parser with
+    two default fields makes them."""
+    import tantivy_tpu_torch as tt
+    from tantivy_tpu_torch.query.parser import QueryParser
+
+    corpus, index = title_body
+    searcher = index.reader().searcher()
+    assert searcher.num_docs() == corpus.n_docs
+    parser = QueryParser.for_index(index, ["title", "body"])
+    q = parser.parse_query("w1")
+    assert isinstance(q, tt.BooleanQuery)
+    assert [(o, sub.term.field) for o, sub in q.clauses] == [
+        (tt.Occur.SHOULD, "title"), (tt.Occur.SHOULD, "body")]
+    q = parser.parse_query('+w1 "w2 w3"')
+    (o1, must), (o2, phrase) = q.clauses
+    assert (o1, o2) == (tt.Occur.MUST, tt.Occur.SHOULD)
+    assert [sub.term.field for _, sub in must.clauses] == ["title", "body"]
+    assert [sub.field for _, sub in phrase.clauses] == ["title", "body"]
+    assert [f.name for f in index.schema.fields()] == ["title", "body"]
+    for name, (s, e) in corpus.fields.items():
+        assert searcher.total_num_tokens(name) == int((e - s).sum())
+
+
+@pytest.mark.parametrize("form", sorted(FORM_MIXES))
+def test_two_fields_planted_denominator_fault_fails(title_body, form):
+    """The fused chain's known fault, planted in the reference: the title's
+    clauses scored with the body's BM25 denominator. The port's host
+    engine then differs from it."""
+    corpus, index = title_body
+    ref = Reference(corpus)
+    title, body = ref.fields
+    title.doc_norm = body.doc_norm
+    mix = {"batch": 30, "k": 10, "forms": [FORM_MIXES[form]]}
+    strings = Traffic(mix, corpus, 11).batch_at(0)
+    _, host, _ = port_topk(corpus, index, strings)
+    assert host != [ref.topk(s, 10) for s in strings]
+
+
+def test_two_fields_lone_terms_pin_the_fused_chain_fault(title_body):
+    """A lone term over two fields runs the default route's fused chain,
+    which scores both clauses with one field's denominator (ROADMAP.md's
+    entry on the fused chain's cross-field fault): its answers differ from
+    the host engine's and the reference's.
+    The program's fault, pinned here until a later change repairs it."""
+    corpus, index = title_body
+    ref = Reference(corpus)
+    mix = {"batch": 30, "k": 10, "forms": [FORM_MIXES["term"]]}
+    strings = Traffic(mix, corpus, 11).batch_at(0)
+    got, host, ex = port_topk(corpus, index, strings)
+    want = [ref.topk(s, 10) for s in strings]
+    assert host == want
+    assert sum(g != w for g, w in zip(got, want)) >= len(strings) // 2
+    assert not ex.fallbacks and ex.host_routed == 0
 
 
 def test_fieldnorm_table_is_tantivys():

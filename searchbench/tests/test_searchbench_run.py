@@ -27,7 +27,8 @@ def run_cell(bench, workload, trace=False, seconds=1.0, device="cpu"):
     return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
 
 
-@pytest.mark.parametrize("workload", ["tiny.questions", "tiny.phrase"])
+@pytest.mark.parametrize("workload", ["tiny.questions", "tiny.phrase",
+                                      "tiny.union"])
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line(tiny_bench, workload, trace):
     rc, res, err = run_cell(tiny_bench, workload, trace)
@@ -90,13 +91,14 @@ class Stale:
         return self.first[:len(results)]
 
 
+@pytest.mark.parametrize("workload", ["tiny.questions", "tiny.union"])
 @pytest.mark.parametrize("fault", ["answer_altered", "half_left_out",
                                    "state_unchanged"])
-def test_faults_fail_the_check(tiny_bench, monkeypatch, fault):
+def test_faults_fail_the_check(tiny_bench, monkeypatch, fault, workload):
     alter = {"answer_altered": one_ulp_up, "half_left_out": half_left_out,
              "state_unchanged": Stale()}[fault]
     answers_altered(monkeypatch, alter)
-    rc, res, err = run_cell(tiny_bench, "tiny.questions")
+    rc, res, err = run_cell(tiny_bench, workload)
     assert rc == 0
     assert res["correct"] is False
     assert res["checks"]["hits_differing"]["value"] > 0
@@ -116,7 +118,8 @@ def test_failed_batches_fail_the_check(tiny_bench, monkeypatch):
     assert res["correct"] is False and res["failed"] == 24
 
 
-@pytest.mark.parametrize("workload", ["tiny.questions", "tiny.phrase"])
+@pytest.mark.parametrize("workload", ["tiny.questions", "tiny.phrase",
+                                      "tiny.union"])
 def test_control_fails_the_check(tiny_bench, workload):
     """The reference in bfloat16, in the program's place, is not correct;
     in float32 it is."""
@@ -126,6 +129,41 @@ def test_control_fails_the_check(tiny_bench, workload):
     same = control.control_run(workload, 5, 2, "float32", root=tiny_bench,
                                data_dir=tiny_bench)
     assert same["hits_differing"]["value"] == 0
+
+
+@pytest.mark.parametrize("workload", ["tiny.questions", "tiny.phrase"])
+def test_title_body_cell_is_correct(title_body_bench, workload):
+    """A cell over a title + body index, queried on both fields, is
+    correct; its control is not."""
+    rc, res, err = run_cell(title_body_bench, workload)
+    assert rc == 0 and res["correct"] is True
+    assert res["checks"]["queries_compared"]["value"] == 24
+    low = control.control_run(workload, 5, 2, "bfloat16",
+                              root=title_body_bench,
+                              data_dir=title_body_bench)
+    assert low["hits_differing"]["value"] > 0
+
+
+def test_title_body_denominator_fault_fails_the_check(title_body_bench,
+                                                      monkeypatch):
+    """The fused chain's known fault, planted in the program's host
+    engine: the title's clauses scored with the body's fieldnorms and
+    average fieldnorm."""
+    from tantivy_tpu_torch.index.segment_reader import SegmentReader
+    from tantivy_tpu_torch.searcher import Searcher
+
+    def body_for_title(real):
+        def read(self, field, *args):
+            return real(self, "body" if field == "title" else field, *args)
+        return read
+
+    monkeypatch.setattr(SegmentReader, "fieldnorms",
+                        body_for_title(SegmentReader.fieldnorms))
+    monkeypatch.setattr(Searcher, "field_statistics",
+                        body_for_title(Searcher.field_statistics))
+    rc, res, _ = run_cell(title_body_bench, "tiny.questions")
+    assert rc == 0 and res["correct"] is False
+    assert res["checks"]["hits_differing"]["value"] > 0
 
 
 def test_no_card_no_result():
