@@ -1,6 +1,7 @@
 """Shared set-up of the benchmark's CPU tests: a benchmark of tiny cells
 (`tiny_bench`) that runs the port's plain versions in seconds."""
 
+import io
 import json
 import os
 import sys
@@ -20,6 +21,9 @@ def pytest_configure(config):
         "skips where none is present",
     )
 
+
+#: the seed of every tiny cell's run
+SEED = 2**31 + 99
 
 TINY_CORPUS = {"vocab": 400, "stream_tokens": 20000, "docs": 1200,
                "segments": 4,
@@ -60,6 +64,18 @@ def write_tiny_bench(path, mixes: dict, fields: list | None = None) -> dict:
     with open(os.path.join(path, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
     return bench
+
+
+def run_cell(bench, workload, trace=False, seconds=1.0, device="cpu"):
+    """One run of a tiny cell of the benchmark under `bench`: (exit code,
+    result line or None, standard error)."""
+    from searchbench.harness import Run
+
+    out, err = io.StringIO(), io.StringIO()
+    rc = Run(workload, SEED, seconds, trace, device=device, root=bench,
+             data_dir=bench, err=err).execute(out)
+    lines = out.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
 
 
 def small_mix(mix_name: str, batch: int) -> dict:

@@ -3,28 +3,15 @@ skipped): the result line's keys, and `correct` coming out false for the
 control and for each fault the cells can have, planted where the answers
 are produced."""
 
-import io
-import json
 import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
-from conftest import ROOT
+from conftest import ROOT, run_cell
 
 from searchbench import control
-from searchbench.harness import Run
-
-SEED = 2**31 + 99
-
-
-def run_cell(bench, workload, trace=False, seconds=1.0, device="cpu"):
-    out, err = io.StringIO(), io.StringIO()
-    rc = Run(workload, SEED, seconds, trace, device=device, root=bench,
-             data_dir=bench, err=err).execute(out)
-    lines = out.getvalue().strip().splitlines()
-    return rc, (json.loads(lines[-1]) if lines else None), err.getvalue()
 
 
 @pytest.mark.parametrize("workload", ["tiny.questions", "tiny.phrase",
